@@ -1,0 +1,126 @@
+// K1: the fused canonical front-end.  ASCII bytes -> 2-bit code + flag ->
+// canonical K-window register (K <= 31) per position, INT64_MAX at windows
+// that touch a byte other than A/C/G/T/U (either case) and at the last K-1
+// positions; plus the chunk's invalid- and ambiguous-byte counts.
+//
+// Replaces the TPU kernel kmers_tpu/ops/pallas/window_kernel.py
+// canonical_windows_u32_pallas (_kernel_u32 with _group8_of_u32,
+// _classify_byte, _is_ambiguous_byte, _canonical); emit_hash is not ported.
+//
+// What bounds it on an H100: per position it moves 9 bytes of device memory
+// (one byte in, one 8-byte register out), and its inner loop issues O(K)
+// shared-memory reads and shifts (over a hundred integer instructions a
+// position at K = 31), so at large K the instruction issue rate, not
+// memory, is the nearer limit.
+//
+// Design, and where the TPU design does not carry over:
+// - One thread per position.  A block stages its 256 positions plus a K-1
+//   byte halo in shared memory, classified once, and bounds the halo at the
+//   chunk's end itself (the TPU kernel read the next tile through a clamped
+//   BlockSpec and swapped in 'N' groups on the last tile).
+// - Bytes are read one at a time: chunks start at multiples of
+//   2^20 - (K - 1), which are not 4-byte aligned, so a view into one device
+//   buffer must not be read through uint32 or vector loads.
+// - The reverse complement is computed in-register, as _canonical does:
+//   complement under the coding mask, 64-bit bit reversal, swap of adjacent
+//   bit pairs, shift right by 64 - 2K.
+// - Counters: TPU grid steps run in order and accumulated in one block;
+//   CUDA blocks run in no order, so each block reduces its own bytes with
+//   __syncthreads_count and adds them atomically into a zeroed int64[2].
+// - Output is in natural position order (the TPU tile relabelling is not
+//   copied).
+// Rolling the register over several positions per thread, to make the work
+// O(1) per position, is left to a later change.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlock = 256;
+constexpr int kMaxHalo = 30;      // K - 1 for K <= 31
+constexpr uint8_t kFlag = 4;      // packed byte: not a certain base
+
+// bit i set: letter 'A' + i belongs to the class
+constexpr uint32_t kCertainMask =
+    (1u << ('A' - 'A')) | (1u << ('C' - 'A')) | (1u << ('G' - 'A')) |
+    (1u << ('T' - 'A')) | (1u << ('U' - 'A'));
+constexpr uint32_t kAmbigMask =
+    (1u << ('M' - 'A')) | (1u << ('R' - 'A')) | (1u << ('S' - 'A')) |
+    (1u << ('V' - 'A')) | (1u << ('W' - 'A')) | (1u << ('Y' - 'A')) |
+    (1u << ('H' - 'A')) | (1u << ('K' - 'A')) | (1u << ('D' - 'A')) |
+    (1u << ('B' - 'A')) | (1u << ('N' - 'A'));
+
+// One ASCII byte -> packed code (2-bit code, or kFlag when not certain),
+// and its counter classes (the classes of ASCII_SKIPPING_LUT).
+__device__ __forceinline__ uint8_t classify(uint32_t b, bool& ambig,
+                                            bool& invalid) {
+    const uint32_t li = (b & 0xDFu) - 'A';  // wraps for non-letters
+    const bool letter = li < 26u;
+    const bool certain = letter && ((kCertainMask >> li) & 1u);
+    ambig = (letter && ((kAmbigMask >> li) & 1u)) || b == '-';
+    invalid = !certain && !ambig;
+    return certain ? static_cast<uint8_t>(((b >> 1) ^ (b >> 2)) & 3u) : kFlag;
+}
+
+__global__ void __launch_bounds__(kBlock)
+canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
+                         int64_t* __restrict__ keys,
+                         unsigned long long* __restrict__ counters) {
+    __shared__ uint8_t tile[kBlock + kMaxHalo];
+    const int t = threadIdx.x;
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlock;
+    const int64_t i = base + t;
+
+    // own byte: classified, and counted exactly once
+    bool ambig = false, invalid = false;
+    tile[t] = i < n ? classify(bytes[i], ambig, invalid) : kFlag;
+    // halo: the next K-1 bytes, flagged past the chunk's end
+    if (t < K - 1) {
+        const int64_t h = base + kBlock + t;
+        bool a, v;
+        tile[kBlock + t] = h < n ? classify(bytes[h], a, v) : kFlag;
+    }
+    // both counts are block-wide barriers, so the tile is complete after them
+    const int n_invalid = __syncthreads_count(invalid);
+    const int n_ambig = __syncthreads_count(ambig);
+    if (t == 0) {
+        if (n_invalid) atomicAdd(&counters[0], static_cast<unsigned long long>(n_invalid));
+        if (n_ambig) atomicAdd(&counters[1], static_cast<unsigned long long>(n_ambig));
+    }
+    if (i >= n) return;
+
+    int64_t out = KMERS_SENTINEL;
+    if (i + K <= n) {
+        uint64_t fw = 0;
+        uint32_t flags = 0;
+        for (int j = 0; j < K; ++j) {
+            const uint8_t p = tile[t + j];
+            fw = (fw << 2) | (p & 3u);
+            flags |= p;
+        }
+        if (!(flags & kFlag)) {
+            const uint64_t mask = (1ull << (2 * K)) - 1;
+            uint64_t z = __brevll(~fw & mask);
+            z = ((z & 0xAAAAAAAAAAAAAAAAull) >> 1) |
+                ((z & 0x5555555555555555ull) << 1);
+            const uint64_t rc = z >> (64 - 2 * K);
+            out = static_cast<int64_t>(fw < rc ? fw : rc);
+        }
+    }
+    keys[i] = out;
+}
+
+}  // namespace
+
+// keys: int64[n]; counters: int64[2] zeroed by the caller (invalid, ambiguous).
+extern "C" int k1_canonical_windows(const void* bytes, long long n, int K,
+                                    void* keys, void* counters, void* stream) {
+    if (n > 0 && K >= 1 && K <= 31) {
+        const long long blocks = (n + kBlock - 1) / kBlock;
+        canonical_windows_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint8_t*>(bytes), n, K,
+            static_cast<int64_t*>(keys),
+            static_cast<unsigned long long*>(counters));
+    }
+    return static_cast<int>(cudaGetLastError());
+}

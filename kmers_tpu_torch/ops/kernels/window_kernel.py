@@ -1,0 +1,85 @@
+"""K1, the fused canonical front-end: its wrapper and its plain version.
+
+Counterpart of ``kmers_tpu/ops/pallas/window_kernel.py::canonical_windows_u32_pallas``
+(the kernel is ``kmers_tpu_torch/csrc/window_kernel.cu``).  Output is in
+natural order: ``keys[i]`` is the canonical register of the window that
+starts at byte ``i``, :data:`~kmers_tpu_torch.convert.SENTINEL` where any of
+its K bytes is not A/C/G/T/U (either case) and for the last K-1 positions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ...convert import SENTINEL
+from ..encode import classify_2bit
+from ..windows import canonical_windows_from_codes, window_valid_mask
+from . import _build
+
+__all__ = ["canonical_windows", "canonical_windows_plain"]
+
+
+def _check_k(K: int) -> None:
+    if not 1 <= K <= 31:
+        raise ValueError(f"canonical windows support 1 <= K <= 31 (got K={K})")
+
+
+def canonical_windows_plain(bytes_u8: torch.Tensor, K: int):
+    """Plain torch version of :func:`canonical_windows`, on any device."""
+    _check_k(K)
+    codes, certain, ambig = classify_2bit(bytes_u8)
+    keys = torch.full(
+        (bytes_u8.shape[0],), SENTINEL, dtype=torch.int64, device=bytes_u8.device
+    )
+    win = canonical_windows_from_codes(codes, K)
+    valid = window_valid_mask(certain, K)
+    keys[: win.shape[0]] = torch.where(valid, win, SENTINEL)
+    n_invalid = (~(certain | ambig)).sum()
+    return keys, n_invalid, ambig.sum()
+
+
+@functools.cache
+def _kernel():
+    v = ctypes.c_void_p
+    return _build.kernel(
+        "k1_canonical_windows", (v, ctypes.c_longlong, ctypes.c_int, v, v, v)
+    )
+
+
+def canonical_windows(bytes_u8: torch.Tensor, K: int):
+    """Canonical K-window registers of a 1-D contiguous ``uint8`` tensor.
+
+    Returns ``(keys, n_invalid, n_ambig)``: ``keys`` int64 of the input's
+    length, and 0-d int64 tensors counting the invalid and the ambiguous
+    bytes (each byte once).  A CUDA tensor launches the kernel; a CPU
+    tensor takes :func:`canonical_windows_plain`.
+    """
+    _check_k(K)
+    if bytes_u8.dtype != torch.uint8 or bytes_u8.dim() != 1:
+        raise TypeError("canonical_windows takes a 1-D uint8 tensor")
+    if bytes_u8.device.type == "cpu":
+        return canonical_windows_plain(bytes_u8, K)
+    if bytes_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {bytes_u8.device}")
+    if not bytes_u8.is_contiguous():
+        raise ValueError("canonical_windows takes a contiguous tensor")
+    n = bytes_u8.shape[0]
+    keys = torch.empty(n, dtype=torch.int64, device=bytes_u8.device)
+    counters = torch.zeros(2, dtype=torch.int64, device=bytes_u8.device)
+    if n:
+        with torch.cuda.device(bytes_u8.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = _kernel()(
+                bytes_u8.data_ptr(), n, K, keys.data_ptr(), counters.data_ptr(),
+                stream,
+            )
+        _build.check(code, "k1_canonical_windows")
+        canonical_windows.launches += 1
+    return keys, counters[0], counters[1]
+
+
+#: kernel launches in this process (the wrapper adds one per launch)
+canonical_windows.launches = 0

@@ -1,0 +1,53 @@
+"""The port's kernel build (``kmers_tpu_torch/ops/kernels/_build.py``) and
+its register conversions (``kmers_tpu_torch/convert.py``), on the CPU."""
+
+import numpy as np
+import pytest
+
+from kmers_tpu_torch import convert
+from kmers_tpu_torch.ops.kernels import _build
+
+
+def test_missing_nvcc_raises_and_says_so(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.Path, "exists", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_library_name_tracks_sources_and_flags(monkeypatch, tmp_path):
+    (tmp_path / "a.cu").write_text("// one\n")
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    first = _build._digest()
+    (tmp_path / "a.cu").write_text("// two\n")
+    second = _build._digest()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-G"))
+    assert len({first, second, _build._digest()}) == 3
+
+
+def test_sources_are_the_kernels():
+    names = {p.name for p in _build._sources()}
+    assert {"window_kernel.cu", "rle_kernel.cu"} <= names
+
+
+def test_keys_round_trip_with_sentinel():
+    hi = np.array([0, 1, 0x3FFFFFFF, 0xFFFFFFFF], np.uint32)
+    lo = np.array([5, 0, 0xFFFFFFFF, 0xFFFFFFFF], np.uint32)
+    keys = convert.keys_from_jax(hi, lo)
+    assert keys.tolist() == [5, 1 << 32, (1 << 62) - 1, convert.SENTINEL]
+    back_hi, back_lo = convert.keys_to_jax(keys)
+    assert np.array_equal(back_hi, hi) and np.array_equal(back_lo, lo)
+
+
+def test_keys_wider_than_62_bits_raise():
+    with pytest.raises(ValueError):
+        convert.keys_from_jax(np.array([0x40000000], np.uint32), np.array([0], np.uint32))
+
+
+def test_table_from_jax_keeps_real_rows():
+    uh = np.array([0, 0xFFFFFFFF, 0, 0xFFFFFFFF], np.uint32)
+    ul = np.array([3, 0xFFFFFFFF, 9, 0xFFFFFFFF], np.uint32)
+    cnt = np.array([2, 0, 7, 0], np.int32)
+    keys, counts = convert.table_from_jax(uh, ul, cnt)
+    assert keys.tolist() == [3, 9] and counts.tolist() == [2, 7]
