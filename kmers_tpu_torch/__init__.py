@@ -2,15 +2,20 @@
 
 A port of the JAX package ``kmers_tpu``, which stays the reference: module
 paths mirror it, so ``kmers_tpu_torch/X.py`` is the counterpart of
-``kmers_tpu/X.py``.  The port imports ``torch`` and never ``jax``; it
-reuses the jax-free scalar plane of ``kmers_tpu`` (alphabets, ``Kmer``,
+``kmers_tpu/X.py``.  The port imports ``torch`` and never ``jax``, and
+nothing of the ``kmers_tpu`` package either, not even its jax-free
+modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
 ``io``).
 
-- ``convert``: the register convention (one int64 per K <= 31 window,
-  ``INT64_MAX`` sentinel, int64 counts) and conversion of JAX state.
-- ``ops``: classification, window registers, sort-based counting, and the
-  hand-written CUDA kernels in ``ops.kernels`` (sources in ``csrc/``).
-- ``pipelines``: canonical k-mer counting for K <= 31.
+- ``convert``: the register convention (``ceil(K / 31)`` int64 words of 62
+  bits per register, ``INT64_MAX`` sentinel, int64 counts) and conversion
+  of JAX state.
+- ``ops``: classification, window registers, sort-based counting of one-
+  and multi-word registers, and the hand-written CUDA kernels in
+  ``ops.kernels`` (sources in ``csrc/``).
+- ``pipelines``: canonical k-mer counting for 1 <= K <= 100.
+- ``symbols``, ``kmer``, ``io``: ``EncodeError``, a 2-bit DNA ``Kmer``,
+  and a pure-Python FASTA/FASTQ reader.
 - ``utils``: checked mode, metrics, the level stack and the drain queue.
 
 Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on

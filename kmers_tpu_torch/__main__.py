@@ -16,10 +16,8 @@ import numpy as np
 
 
 def cmd_count(args):
-    from kmers_tpu.alphabets import DNAAlphabet2
-    from kmers_tpu.io import read_fastx
-    from kmers_tpu.kmer import Kmer
-
+    from .io import read_fastx
+    from .kmer import Kmer
     from .pipelines.canonical_count import CountConfig, canonical_count_records
     from .utils import Metrics, checked
 
@@ -34,7 +32,7 @@ def cmd_count(args):
         print(m.dump(), file=sys.stderr)
     top = np.argsort(counts)[::-1][: args.top]
     for i in top:
-        k = Kmer.unsafe(DNAAlphabet2(), args.k, int(kmers[i]))
+        k = Kmer.unsafe(args.k, int(kmers[i]))
         print(f"{k}\t{counts[i]}")
     print(
         json.dumps({"distinct": int(kmers.size), "total": int(counts.sum())}),
@@ -46,7 +44,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="kmers_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    c = sub.add_parser("count", help="canonical K-mer counting (K <= 31)")
+    c = sub.add_parser("count", help="canonical K-mer counting (1 <= K <= 100)")
     c.add_argument("input")
     c.add_argument("-k", type=int, default=31)
     c.add_argument("--top", type=int, default=10, help="print N most frequent")

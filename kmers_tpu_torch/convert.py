@@ -1,21 +1,29 @@
 """The port's register convention, and conversion of state to and from
 the JAX package.
 
-- A K <= 31 window register is one ``int64``.  Real registers hold at
-  most 62 bits, so they are never negative and signed order equals the
-  JAX package's unsigned ``(hi, lo)`` order.  torch has no ``>>`` or
-  ``<`` for ``uint32`` on the CPU, so the JAX package's pair of ``uint32``
-  limbs (``kmers_tpu/ops/u64.py``) is not carried over.
-- Invalid windows hold :data:`SENTINEL` (``INT64_MAX``), which sorts after
-  every real register.  The JAX sentinel, all-ones in both limbs, would
-  be ``-1`` as an ``int64`` and sort first.
+- A K-mer register is ``W = n_words(K) = ceil(K / 31)`` ``int64`` words of
+  at most 62 bits (31 bases) each.  Word 0 is the most significant and
+  holds the first ``K - 31 (W - 1)`` bases; the last word holds the last
+  31 bases.  Real words are never negative, so signed lexicographic order
+  over the words equals the order of the registers (and the JAX package's
+  unsigned limb order).  A K <= 31 register is the ``W = 1`` case: one
+  ``int64`` per window, kept as a 1-D tensor.  torch has no ``>>`` or
+  ``<`` for ``uint32`` on the CPU, so the JAX package's ``uint32`` limbs
+  (``kmers_tpu/ops/u64.py``, ``ops/multiword.py``) are not carried over.
+- An invalid window holds :data:`SENTINEL` (``INT64_MAX``) in every word.
+  No real word reaches it, so it sorts after every real register and
+  collides with none at any K (the JAX package needs an explicit flag
+  operand where ``2K`` fills its limbs, K = 32, 48, 64, 80, 96).  The JAX
+  sentinel, all-ones limbs, would be ``-1`` as an ``int64`` and sort first.
 - Counts are ``int64`` (the JAX package counts in ``int32``).
-- A count table is a pair ``(keys, counts)`` of ``int64`` tensors with
-  ascending keys; rows with a zero count are padding.
+- A count table is a pair ``(keys, counts)``: ``keys`` of shape ``(n,)``
+  for K <= 31 or ``(W, n)``, ``counts`` ``int64`` of shape ``(n,)``, rows
+  in ascending order; rows with a zero count are padding.
 
 Public outputs are exactly the JAX package's: sorted ``np.uint64`` k-mers
-and ``np.int64`` counts.  The functions below convert internal state at
-the boundary, so that tests can hand both packages the same state.
+(K <= 31) or a sorted object array of Python ints (K > 31), and ``np.int64``
+counts.  The functions below convert internal state at the boundary, so
+that tests can hand both packages the same state.
 """
 
 from __future__ import annotations
@@ -26,17 +34,30 @@ import torch
 __all__ = [
     "SENTINEL",
     "KEY_BITS_MAX",
+    "WORD_BASES",
+    "n_words",
     "keys_from_jax",
     "keys_to_jax",
     "table_from_jax",
+    "words_from_jax",
+    "words_to_jax",
+    "words_to_ints",
 ]
 
-#: register of an invalid window (sorts after every real register)
+#: register word of an invalid window (sorts after every real word)
 SENTINEL = (1 << 63) - 1
-#: widest register the int64 convention holds below the sentinel
+#: widest register word the int64 convention holds below the sentinel
 KEY_BITS_MAX = 62
+#: bases in a full register word
+WORD_BASES = KEY_BITS_MAX // 2
 
 _JAX_LIMB_SENT = 0xFFFFFFFF
+_WORD_MASK = np.uint64((1 << KEY_BITS_MAX) - 1)
+
+
+def n_words(K: int) -> int:
+    """Register words of a K-mer: ``ceil(K / 31)``."""
+    return -(-K // WORD_BASES)
 
 
 def keys_from_jax(hi, lo, device=None) -> torch.Tensor:
@@ -75,3 +96,71 @@ def table_from_jax(uh, ul, cnt, device=None):
     keys = keys_from_jax(np.asarray(uh)[real], np.asarray(ul)[real], device)
     counts = torch.from_numpy(cnt[real].astype(np.int64)).to(device)
     return keys, counts
+
+
+def _regroup(parts, part_bits: int, out_bits: int, n_out: int) -> list:
+    """Cut the bit string held big-endian in ``parts`` (uint64 arrays of
+    ``part_bits`` bits each) into ``n_out`` big-endian pieces of
+    ``out_bits`` bits, as uint64 arrays (the top piece keeps what is left)."""
+    n_in = len(parts)
+    out = []
+    for o in range(n_out):
+        lo = out_bits * (n_out - 1 - o)
+        acc = np.zeros(parts[0].shape, np.uint64)
+        for p, x in enumerate(parts):
+            base = part_bits * (n_in - 1 - p)
+            if base + part_bits <= lo or base >= lo + out_bits:
+                continue  # no bit of this part falls in this piece
+            if base >= lo:
+                acc |= x << np.uint64(base - lo)
+            else:
+                acc |= x >> np.uint64(lo - base)
+        out.append(acc & np.uint64((1 << out_bits) - 1))
+    return out
+
+
+def words_from_jax(limbs, K: int, device=None) -> torch.Tensor:
+    """JAX ``M = ceil(2K / 32)`` uint32 limbs (limb 0 most significant) ->
+    the port's ``(W, n)`` int64 words.
+
+    All-ones limbs, the JAX sentinel, become :data:`SENTINEL` in every
+    word (at ``2K = 32 M`` all-ones is also the forward register of K
+    ``T``'s, which is never canonical); any other register wider than
+    ``2K`` bits raises ``ValueError``.
+    """
+    limbs = [np.asarray(x, np.uint32) for x in limbs]
+    M = -(-2 * K // 32)
+    if len(limbs) != M:
+        raise ValueError(f"K={K} takes {M} limbs, got {len(limbs)}")
+    sent = np.logical_and.reduce([x == _JAX_LIMB_SENT for x in limbs])
+    top_bits = 2 * K - 32 * (M - 1)
+    if top_bits < 32 and (limbs[0][~sent] >> np.uint32(top_bits)).any():
+        raise ValueError(f"register wider than {2 * K} bits")
+    W = n_words(K)
+    words = _regroup([x.astype(np.uint64) for x in limbs], 32, KEY_BITS_MAX, W)
+    out = np.stack(words).astype(np.int64)
+    out[:, sent] = SENTINEL
+    return torch.from_numpy(out).to(device)
+
+
+def words_to_jax(words: torch.Tensor, K: int):
+    """The port's ``(W, n)`` words -> a tuple of JAX uint32 limb arrays,
+    :data:`SENTINEL` rows back to all-ones."""
+    w = words.detach().cpu().numpy().astype(np.int64)
+    if w.shape[0] != n_words(K):
+        raise ValueError(f"K={K} takes {n_words(K)} words, got {w.shape[0]}")
+    sent = w[0] == SENTINEL
+    M = -(-2 * K // 32)
+    limbs = _regroup([x.astype(np.uint64) for x in w], KEY_BITS_MAX, 32, M)
+    return tuple(
+        np.where(sent, np.uint32(_JAX_LIMB_SENT), x.astype(np.uint32)) for x in limbs
+    )
+
+
+def words_to_ints(words: np.ndarray) -> np.ndarray:
+    """Real ``(W, n)`` words (no sentinel) -> the public object array of
+    ``n`` Python-int registers, as the JAX package's ``mw_to_numpy``."""
+    out = words[0].astype(object)
+    for w in words[1:]:
+        out = (out << KEY_BITS_MAX) | w.astype(object)
+    return out

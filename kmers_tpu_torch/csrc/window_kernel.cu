@@ -35,57 +35,19 @@
 
 namespace {
 
-constexpr int kBlock = 256;
+using kmers::kBlock;
+using kmers::kFlag;
+
 constexpr int kMaxHalo = 30;      // K - 1 for K <= 31
-constexpr uint8_t kFlag = 4;      // packed byte: not a certain base
-
-// bit i set: letter 'A' + i belongs to the class
-constexpr uint32_t kCertainMask =
-    (1u << ('A' - 'A')) | (1u << ('C' - 'A')) | (1u << ('G' - 'A')) |
-    (1u << ('T' - 'A')) | (1u << ('U' - 'A'));
-constexpr uint32_t kAmbigMask =
-    (1u << ('M' - 'A')) | (1u << ('R' - 'A')) | (1u << ('S' - 'A')) |
-    (1u << ('V' - 'A')) | (1u << ('W' - 'A')) | (1u << ('Y' - 'A')) |
-    (1u << ('H' - 'A')) | (1u << ('K' - 'A')) | (1u << ('D' - 'A')) |
-    (1u << ('B' - 'A')) | (1u << ('N' - 'A'));
-
-// One ASCII byte -> packed code (2-bit code, or kFlag when not certain),
-// and its counter classes (the classes of ASCII_SKIPPING_LUT).
-__device__ __forceinline__ uint8_t classify(uint32_t b, bool& ambig,
-                                            bool& invalid) {
-    const uint32_t li = (b & 0xDFu) - 'A';  // wraps for non-letters
-    const bool letter = li < 26u;
-    const bool certain = letter && ((kCertainMask >> li) & 1u);
-    ambig = (letter && ((kAmbigMask >> li) & 1u)) || b == '-';
-    invalid = !certain && !ambig;
-    return certain ? static_cast<uint8_t>(((b >> 1) ^ (b >> 2)) & 3u) : kFlag;
-}
 
 __global__ void __launch_bounds__(kBlock)
 canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
                          int64_t* __restrict__ keys,
                          unsigned long long* __restrict__ counters) {
     __shared__ uint8_t tile[kBlock + kMaxHalo];
+    kmers::stage_tile(bytes, n, K - 1, tile, counters);
     const int t = threadIdx.x;
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlock;
-    const int64_t i = base + t;
-
-    // own byte: classified, and counted exactly once
-    bool ambig = false, invalid = false;
-    tile[t] = i < n ? classify(bytes[i], ambig, invalid) : kFlag;
-    // halo: the next K-1 bytes, flagged past the chunk's end
-    if (t < K - 1) {
-        const int64_t h = base + kBlock + t;
-        bool a, v;
-        tile[kBlock + t] = h < n ? classify(bytes[h], a, v) : kFlag;
-    }
-    // both counts are block-wide barriers, so the tile is complete after them
-    const int n_invalid = __syncthreads_count(invalid);
-    const int n_ambig = __syncthreads_count(ambig);
-    if (t == 0) {
-        if (n_invalid) atomicAdd(&counters[0], static_cast<unsigned long long>(n_invalid));
-        if (n_ambig) atomicAdd(&counters[1], static_cast<unsigned long long>(n_ambig));
-    }
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + t;
     if (i >= n) return;
 
     int64_t out = KMERS_SENTINEL;
@@ -99,10 +61,8 @@ canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
         }
         if (!(flags & kFlag)) {
             const uint64_t mask = (1ull << (2 * K)) - 1;
-            uint64_t z = __brevll(~fw & mask);
-            z = ((z & 0xAAAAAAAAAAAAAAAAull) >> 1) |
-                ((z & 0x5555555555555555ull) << 1);
-            const uint64_t rc = z >> (64 - 2 * K);
+            const uint64_t rc =
+                kmers::swap_bit_pairs(__brevll(~fw & mask)) >> (64 - 2 * K);
             out = static_cast<int64_t>(fw < rc ? fw : rc);
         }
     }
@@ -114,7 +74,8 @@ canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
 // keys: int64[n]; counters: int64[2] zeroed by the caller (invalid, ambiguous).
 extern "C" int k1_canonical_windows(const void* bytes, long long n, int K,
                                     void* keys, void* counters, void* stream) {
-    if (n > 0 && K >= 1 && K <= 31) {
+    if (K < 1 || K > 31) return static_cast<int>(cudaErrorInvalidValue);
+    if (n > 0) {
         const long long blocks = (n + kBlock - 1) / kBlock;
         canonical_windows_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
                                    static_cast<cudaStream_t>(stream)>>>(

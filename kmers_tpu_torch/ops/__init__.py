@@ -1,5 +1,5 @@
-"""The port's compute plane: classification, window registers, counting,
-and the CUDA kernels (``ops.kernels``)."""
+"""The port's compute plane: classification, window registers, counting of
+one- and multi-word registers, and the CUDA kernels (``ops.kernels``)."""
 
 from .count import (
     SENTINEL,
@@ -9,6 +9,12 @@ from .count import (
     sort_count,
 )
 from .encode import classify_2bit
+from .multiword import (
+    canonical_windows_mw,
+    canonical_windows_mw_bytes,
+    merge_compact_tables_mw,
+    sort_count_mw,
+)
 from .windows import canonical_windows_from_codes, window_valid_mask
 
 __all__ = [
@@ -20,4 +26,8 @@ __all__ = [
     "compact_counts",
     "merge_sorted_counts",
     "merge_compact_tables",
+    "canonical_windows_mw",
+    "canonical_windows_mw_bytes",
+    "sort_count_mw",
+    "merge_compact_tables_mw",
 ]

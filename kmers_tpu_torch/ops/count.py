@@ -75,17 +75,21 @@ def sort_count(keys: torch.Tensor, valid: torch.Tensor | None = None,
 
 def compact_counts(keys: torch.Tensor, counts: torch.Tensor):
     """Front-pack the real rows (count > 0) of a sentinel-interspersed
-    table, in order; the tail becomes sentinel/0.  Same length in and out;
-    rows are scattered to their rank, and every hole to a spare slot that
-    is dropped."""
-    n = keys.shape[0]
+    table, in order; the tail becomes sentinel/0.  ``keys`` is ``(n,)``
+    or, for multi-word registers, ``(W, n)`` (the counterpart of both
+    ``compact_counts`` and ``compact_counts_mw``).  Same length in and
+    out; rows are scattered to their rank, and every hole to a spare slot
+    that is dropped."""
+    n = counts.shape[0]
     real = counts > 0
     dest = torch.where(real, torch.cumsum(real, 0) - 1, n)
-    out_k = torch.full((n + 1,), SENTINEL, dtype=torch.int64, device=keys.device)
+    out_k = torch.full(
+        (*keys.shape[:-1], n + 1), SENTINEL, dtype=torch.int64, device=keys.device
+    )
     out_c = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
-    out_k.scatter_(0, dest, keys)
+    out_k.scatter_(-1, dest.expand_as(keys), keys)
     out_c.scatter_(0, dest, torch.where(real, counts.to(torch.int64), 0))
-    return out_k[:n], out_c[:n]
+    return out_k[..., :n], out_c[:n]
 
 
 def merge_sorted_counts(keys_a, counts_a, keys_b, counts_b):

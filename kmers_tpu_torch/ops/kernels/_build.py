@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``kmers_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` (Hopper) into ONE shared library with a plain C interface,
-loaded with ``ctypes``.  The library sits in ``kmers_tpu_torch/_build/``
-under a name that carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded.  The build runs
-at the first kernel launch of a process, never at import.
+``sm_90a`` (Hopper), one process per file in parallel, and linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library sits in ``kmers_tpu_torch/_build/`` under a name that carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded.  The build runs at the first kernel launch of a
+process, never at import.
 
 Each C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch;
@@ -31,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -60,32 +61,49 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(out: Path, workdir: Path) -> None:
+    """Compile every source to an object in ``workdir``, one ``nvcc``
+    process per source, all started together; then link them into the
+    shared library ``out``."""
+    nvcc = _nvcc()
+    sources = _sources()
+    objs = [workdir / f"{src.stem}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    # wait for every process before raising, so none is left running
+    outputs = [p.communicate()[0] for p in procs]
+    failed = [
+        f"{src.name} ({p.returncode}):\n{text}"
+        for src, p, text in zip(sources, procs, outputs) if p.returncode
+    ]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if no library of the
     current sources and flags exists."""
     so = BUILD_DIR / f"libkmers_kernels_{_digest()}.so"
     if not so.exists():
-        nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build to a private name, then rename: concurrent processes never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp,
-                 *map(str, _sources())],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
+        # build in a private directory, then rename: concurrent processes
+        # never load a half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            tmp = Path(work) / so.name
+            _compile(tmp, Path(work))
             os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
     return ctypes.CDLL(str(so))
 
 

@@ -1,0 +1,166 @@
+"""Multi-word K-mer registers (K > 31): windows and counting, in plain torch.
+
+Counterpart of ``kmers_tpu/ops/multiword.py``, in the word convention of
+``convert.py``: a register is ``W = ceil(K / 31)`` int64 words of 62 bits,
+word 0 the most significant, :data:`SENTINEL` in every word of an invalid
+window.  Windows are in natural position order: column ``i`` is the
+window of positions ``[i, i + K)``.
+
+Counting sorts the columns lexicographically with the one library call
+of the path, ``torch.sort`` (as ``lax.sort`` is in JAX): W stable passes,
+least significant word first.  The sorted columns then get run ids, a
+sorted int64 stream (:data:`SENTINEL` for the invalid run), so the
+one-word machinery counts them: kernel K2 (``rle_unit``) for a chunk and
+the weighted ``_run_length_encode`` of ``ops/count.py`` for a merge.
+``ops/count.py::compact_counts`` front-packs word tables as well.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..convert import SENTINEL, WORD_BASES, n_words
+from .count import _run_length_encode, compact_counts
+from .encode import classify_2bit
+from .kernels.rle_kernel import rle_unit
+from .windows import window_valid_mask
+
+__all__ = [
+    "canonical_windows_mw",
+    "canonical_windows_mw_bytes",
+    "sort_count_mw",
+    "merge_compact_tables_mw",
+]
+
+#: widest K of the array plane (the JAX ``CountConfig``'s limit)
+K_MAX = 100
+
+
+def _check_k(K: int) -> None:
+    if not 1 <= K <= K_MAX:
+        raise ValueError(f"multi-word windows support 1 <= K <= {K_MAX} (got K={K})")
+
+
+def _forward(codes: torch.Tensor, width: int) -> torch.Tensor:
+    """Register of ``codes[p : p + width]`` at every start ``p``, first
+    base in the highest bits."""
+    n = codes.shape[0] - width + 1
+    reg = torch.zeros(n, dtype=torch.int64, device=codes.device)
+    for j in range(width):
+        reg = (reg << 2) | codes[j : j + n]
+    return reg
+
+
+def _reverse_complement(codes: torch.Tensor, width: int) -> torch.Tensor:
+    """Reverse-complement register of ``codes[p : p + width]`` at every
+    start ``p``: base ``j``'s complement lands in bits ``2j``."""
+    n = codes.shape[0] - width + 1
+    reg = torch.zeros(n, dtype=torch.int64, device=codes.device)
+    for j in range(width):
+        reg = reg | ((3 - codes[j : j + n]) << (2 * j))
+    return reg
+
+
+def canonical_windows_mw(codes: torch.Tensor, K: int) -> torch.Tensor:
+    """Canonical words of every K-window of an int64 2-bit code stream:
+    ``(W, L - K + 1)`` int64, the lexicographic minimum of the forward
+    and reverse-complement registers taken over the whole register."""
+    _check_k(K)
+    L = codes.shape[0]
+    n = L - K + 1
+    W = n_words(K)
+    if n <= 0:
+        return torch.zeros((W, 0), dtype=torch.int64, device=codes.device)
+    # word w holds window bases [off, off + width): the first word the
+    # K - 31 (W - 1) leading bases, every other word 31
+    widths = [K - WORD_BASES * (W - 1)] + [WORD_BASES] * (W - 1)
+    fwd = {w: _forward(codes, w) for w in set(widths)}
+    rev = {w: _reverse_complement(codes, w) for w in set(widths)}
+    fw, rc = [], []
+    off = 0
+    for width in widths:
+        fw.append(fwd[width][off : off + n])
+        # the same word of the reverse complement reads window bases
+        # [K - off - width, K - off), reversed and complemented
+        start = K - off - width
+        rc.append(rev[width][start : start + n])
+        off += width
+    lt = torch.zeros(n, dtype=torch.bool, device=codes.device)
+    eq = torch.ones(n, dtype=torch.bool, device=codes.device)
+    for f, r in zip(fw, rc):
+        lt = lt | (eq & (f < r))
+        eq = eq & (f == r)
+    return torch.where(lt | eq, torch.stack(fw), torch.stack(rc))
+
+
+def canonical_windows_mw_bytes(bytes_u8: torch.Tensor, K: int):
+    """Canonical words of every window of an ASCII byte tensor, in plain
+    torch: the composition K3 fuses, for any ``1 <= K <= 100``.
+
+    Returns ``(words, n_invalid, n_ambig)``: ``words`` ``(W, L)`` int64
+    with :data:`SENTINEL` in every word of a window that touches a byte
+    other than A/C/G/T/U (either case) and of the last K-1 positions, and
+    0-d int64 counts of the invalid and the ambiguous bytes.
+    """
+    _check_k(K)
+    codes, certain, ambig = classify_2bit(bytes_u8)
+    L = bytes_u8.shape[0]
+    words = torch.full(
+        (n_words(K), L), SENTINEL, dtype=torch.int64, device=bytes_u8.device
+    )
+    win = canonical_windows_mw(codes, K)
+    valid = window_valid_mask(certain, K)
+    words[:, : win.shape[1]] = torch.where(valid, win, SENTINEL)
+    return words, (~(certain | ambig)).sum(), ambig.sum()
+
+
+def _lex_order(words: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts the columns of ``(W, n)`` words
+    lexicographically: W stable sorts, least significant word first."""
+    order = None
+    for w in reversed(range(words.shape[0])):
+        key = words[w] if order is None else words[w][order]
+        idx = torch.sort(key, stable=True).indices
+        order = idx if order is None else order[idx]
+    return order
+
+
+def _run_ids(swords: torch.Tensor) -> torch.Tensor:
+    """Run ids of lexicographically sorted columns: ``0, 1, ...`` per run
+    of equal columns, :data:`SENTINEL` for the run of invalid columns
+    (which sorts last), so the ids are a sorted int64 stream."""
+    n = swords.shape[1]
+    first = torch.ones(n, dtype=torch.bool, device=swords.device)
+    first[1:] = (swords[:, 1:] != swords[:, :-1]).any(0)
+    ids = torch.cumsum(first, 0) - 1
+    # a real word is never SENTINEL, so word 0 marks the invalid run
+    return torch.where(swords[0] == SENTINEL, SENTINEL, ids)
+
+
+def sort_count_mw(words: torch.Tensor, valid: torch.Tensor | None = None):
+    """Count the distinct columns of ``(W, n)`` words.
+
+    Returns ``(uniq, counts, n_unique)``: a sentinel-interspersed table of
+    the input's length (each run's last column keeps its words and the
+    run's length, every other column is :data:`SENTINEL`/0) and the number
+    of distinct non-sentinel registers.  ``valid`` (optional bool) routes
+    masked columns to the sentinel.
+    """
+    if valid is not None:
+        words = torch.where(valid, words, SENTINEL)
+    swords = words[:, _lex_order(words)]
+    _, counts, n_unique = rle_unit(_run_ids(swords))
+    return torch.where(counts > 0, swords, SENTINEL), counts, n_unique
+
+
+def merge_compact_tables_mw(words_a, counts_a, words_b, counts_b):
+    """Merge two word count tables: concatenate, sort, sum equal
+    registers, front-pack.  Returns ``(words, counts, n_unique)``; the
+    first ``n_unique`` columns are the merged table, in order."""
+    words = torch.cat([words_a, words_b], 1)
+    counts = torch.cat([counts_a, counts_b]).to(torch.int64)
+    order = _lex_order(words)
+    swords = words[:, order]
+    _, totals, n_unique = _run_length_encode(_run_ids(swords), counts[order])
+    uniq = torch.where(totals > 0, swords, SENTINEL)
+    return (*compact_counts(uniq, totals), n_unique)

@@ -1,4 +1,4 @@
-"""End-to-end workloads of the port: canonical k-mer counting (K <= 31)."""
+"""End-to-end workloads of the port: canonical k-mer counting (1 <= K <= 100)."""
 
 from .canonical_count import (
     CountConfig,

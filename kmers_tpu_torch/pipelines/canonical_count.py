@@ -1,13 +1,21 @@
-"""Canonical k-mer counting for K <= 31 — the port's main path.
+"""Canonical k-mer counting for 1 <= K <= 100 — the port's main path.
 
 Counterpart of ``kmers_tpu/pipelines/canonical_count.py``.  The input is
-uploaded once; each chunk is a view into it and runs two kernels: K1
-(``canonical_windows``: bytes -> canonical int64 window registers and
-byte error counts) and ``sort_count`` (``torch.sort``, then K2
-``rle_unit``).  Chunk tables are front-packed and folded on the device
-through a level stack of merges; rows with ``counts > 0`` are the result.
-A CUDA device runs the kernels, a CPU device their plain versions: the
-device decides, there is no other switch.
+uploaded once; each chunk is a view into it.  Chunk tables are
+front-packed and folded on the device through a level stack of merges;
+rows with ``counts > 0`` are the result.  A CUDA device runs the kernels,
+a CPU device their plain versions: the device decides, there is no other
+switch.
+
+- K <= 31: one int64 register per window.  A chunk runs K1
+  (``canonical_windows``: bytes -> canonical registers and byte error
+  counts) and ``sort_count`` (``torch.sort``, then K2 ``rle_unit``).
+- K > 31 (``_canonical_count_multiword``): registers of ``ceil(K / 31)``
+  int64 words (``convert.py``).  For 32 <= K <= 63 a chunk runs K3
+  (``canonical_words``); for 64 <= K <= 100 its windows are plain torch
+  on every device, as the reference computes them with jnp (there is no
+  TPU kernel there).  Then ``sort_count_mw``: a lexicographic
+  ``torch.sort`` of the words and K2 over their run ids.
 """
 
 from __future__ import annotations
@@ -17,12 +25,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from kmers_tpu.alphabets import DNAAlphabet2
-from kmers_tpu.symbols import EncodeError
-
-from ..convert import SENTINEL
+from ..convert import SENTINEL, words_to_ints
+from ..kmer import Kmer
 from ..ops.count import compact_counts, merge_compact_tables, sort_count
+from ..ops.kernels.multiword_kernel import K_MAX as K3_MAX
+from ..ops.kernels.multiword_kernel import canonical_words
 from ..ops.kernels.window_kernel import canonical_windows
+from ..ops.multiword import canonical_windows_mw_bytes, merge_compact_tables_mw, sort_count_mw
+from ..symbols import EncodeError
 from ..utils.debug import checked_mode
 from ..utils.levelstack import LevelStack
 from ..utils.streamq import DrainQueue
@@ -37,6 +47,8 @@ __all__ = [
     "counts_to_dict",
 ]
 
+_ALPHABET = "DNAAlphabet2"
+
 
 @dataclasses.dataclass(frozen=True)
 class CountConfig:
@@ -47,7 +59,8 @@ class CountConfig:
     #: skip windows containing IUPAC ambiguity codes; if False, an
     #: ambiguity code raises EncodeError
     skip_ambiguous: bool = True
-    #: bases per chunk; None = 2^20
+    #: bases per chunk; None = 2^20 for K <= 31, 2^19 for K > 31 (the
+    #: reference's defaults)
     chunk_size: int | None = None
 
     def __post_init__(self):
@@ -59,7 +72,9 @@ class CountConfig:
     @property
     def resolved_chunk_size(self) -> int:
         """The effective chunk size."""
-        return self.chunk_size if self.chunk_size is not None else 1 << 20
+        if self.chunk_size is not None:
+            return self.chunk_size
+        return (1 << 19) if self.K > 31 else (1 << 20)
 
 
 def _as_byte_array(data) -> np.ndarray:
@@ -85,8 +100,8 @@ def _resolve_device(device) -> torch.device:
 
 
 def _count_chunk(chunk: torch.Tensor, K: int, track: bool):
-    """One chunk: ``((uniq, counts), scalars)`` with ``scalars`` the int64
-    tensor ``[n_unique, n_invalid, n_ambig(, n_valid, n_counted)]``."""
+    """One K <= 31 chunk: ``((uniq, counts), scalars)`` with ``scalars``
+    the int64 tensor ``[n_unique, n_invalid, n_ambig(, n_valid, n_counted)]``."""
     keys, n_invalid, n_ambig = canonical_windows(chunk, K)
     uniq, counts, n_unique = sort_count(keys, key_bits=2 * K)
     scalars = [n_unique, n_invalid, n_ambig]
@@ -95,79 +110,107 @@ def _count_chunk(chunk: torch.Tensor, K: int, track: bool):
     return (uniq, counts), torch.stack(scalars)
 
 
+def _count_chunk_mw(chunk: torch.Tensor, K: int):
+    """One K > 31 chunk: ``((uniq, counts), [n_unique, n_invalid, n_ambig])``."""
+    # K3 covers the TPU kernel's range; wider registers take plain torch on
+    # every device, as the reference takes jnp
+    if K <= K3_MAX:
+        words, n_invalid, n_ambig = canonical_words(chunk, K)
+    else:
+        words, n_invalid, n_ambig = canonical_windows_mw_bytes(chunk, K)
+    uniq, counts, n_unique = sort_count_mw(words)
+    return (uniq, counts), torch.stack([n_unique, n_invalid, n_ambig])
+
+
+def _count_stream(buf: torch.Tensor, K: int, chunk_size: int, count_chunk, merge):
+    """Count the overlapping chunks of ``buf`` and fold their tables.
+
+    ``count_chunk(view)`` gives ``((keys, counts), scalars)`` with
+    ``scalars[0]`` the distinct count; ``merge(ka, ca, kb, cb)`` gives a
+    front-packed ``(keys, counts, n_unique)``.  Keys are ``(n,)`` or
+    ``(W, n)``.  Returns ``(table, tallies)``: the table (interspersed
+    when there was one chunk) and the sums of ``scalars[1:]`` as ints.
+    """
+    # consecutive chunks share K-1 bases, so no window is lost at a boundary;
+    # each chunk sentinels its own last K-1 windows, so none is counted twice
+    starts = range(0, max(buf.shape[0] - K + 1, 1), chunk_size - (K - 1))
+    if len(starts) == 1:
+        # one chunk: no compaction, no merge; the final mask drops padding
+        table, scalars = count_chunk(buf)
+        return table, scalars.tolist()[1:]
+
+    tallies = None
+
+    def _slice(out):
+        keys, counts, n_unique = out
+        nu = int(n_unique)  # the merge's one host round trip
+        return keys[..., :nu], counts[:nu]
+
+    stack = LevelStack(lambda a, b: merge(*a, *b), _slice)
+
+    def _drain(out, values):
+        nonlocal tallies
+        nu, rest = values[0], values[1:]
+        tallies = rest if tallies is None else [t + v for t, v in zip(tallies, rest)]
+        keys, counts = compact_counts(*out)
+        stack.push((keys[..., :nu], counts[:nu]))
+
+    queue = DrainQueue(_drain)
+    for start in starts:
+        queue.push(*count_chunk(buf[start : start + chunk_size]))
+    queue.flush()
+    return stack.fold(), tallies
+
+
+def _check_bytes(n_invalid: int, n_ambig: int, config: CountConfig) -> None:
+    if n_invalid:
+        raise EncodeError(_ALPHABET, "<batch input>")
+    if n_ambig and not config.skip_ambiguous:
+        raise EncodeError(_ALPHABET, "<ambiguous base>")
+
+
+def _upload(data, config: CountConfig, device):
+    """``(buf, chunk_size)``, or None when the input holds no window."""
+    arr = _as_byte_array(data)
+    chunk_size = config.resolved_chunk_size
+    if chunk_size < config.K:
+        raise ValueError(f"chunk_size ({chunk_size}) must be >= K ({config.K})")
+    if arr.shape[0] < config.K:
+        return None
+    return torch.tensor(arr, dtype=torch.uint8, device=device), chunk_size
+
+
 def canonical_count_bytes(
     data, config: CountConfig = CountConfig(), metrics=None, device="cuda"
 ):
     """Count canonical K-mers of an ASCII nucleotide buffer on ``device``.
 
-    Returns ``(kmers, counts)``: sorted ``np.uint64`` canonical register
-    values and their ``np.int64`` counts, as the JAX package returns them.
-    Invalid bytes raise EncodeError, and so do ambiguous bases under
-    ``skip_ambiguous=False``.  ``metrics``: an optional
-    :class:`~kmers_tpu_torch.utils.Metrics` that records one batch.
+    Returns ``(kmers, counts)`` as the JAX package returns them: for
+    K <= 31, ``kmers`` is a sorted ``np.uint64`` array of canonical
+    register values; for K > 31 a sorted object array of Python-int
+    registers; ``counts`` is ``np.int64``.  Invalid bytes raise
+    EncodeError, and so do ambiguous bases under ``skip_ambiguous=False``.
+    ``metrics``: an optional :class:`~kmers_tpu_torch.utils.Metrics` that
+    records one batch (K <= 31 only, as in the reference).
     """
-    if config.K > 31:
-        raise NotImplementedError(
-            "K > 31 needs multi-limb registers (kernel K3), not ported yet: "
-            "ROADMAP.md queue 1 item 10"
-        )
     device = _resolve_device(device)
+    if config.K > 31:
+        return _canonical_count_multiword(data, config, device)
     if metrics is not None:
         metrics.start_batch()
-    arr = _as_byte_array(data)
     K = config.K
-    chunk_size = config.resolved_chunk_size
-    if chunk_size < K:
-        raise ValueError(f"chunk_size ({chunk_size}) must be >= K ({K})")
-    L = arr.shape[0]
-    if L < K:
+    up = _upload(data, config, device)
+    if up is None:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-
-    # consecutive chunks share K-1 bases, so no window is lost at a boundary;
-    # each chunk sentinels its own last K-1 windows, so none is counted twice
-    step = chunk_size - (K - 1)
-    starts = list(range(0, max(L - K + 1, 1), step))
+    buf, chunk_size = up
     dbg = checked_mode()
     track = dbg or metrics is not None
-    buf = torch.tensor(arr, dtype=torch.uint8, device=device)
-
-    # host-int tallies: [n_invalid, n_ambig, n_valid, n_counted]
-    tallies = [0, 0, 0, 0]
-
-    def _merge(a, b):
-        return merge_compact_tables(a[0], a[1], b[0], b[1])
-
-    def _slice(out):
-        keys, counts, n_unique = out
-        nu = int(n_unique)  # the merge's one host round trip
-        return keys[:nu], counts[:nu]
-
-    stack = LevelStack(_merge, _slice)
-
-    def _drain(out, values):
-        nu = values[0]
-        for i, v in enumerate(values[1:]):
-            tallies[i] += v
-        keys, counts = compact_counts(*out)
-        stack.push((keys[:nu], counts[:nu]))
-
-    if len(starts) == 1:
-        # one chunk: no compaction, no merge; the final mask drops padding
-        acc, scalars = _count_chunk(buf, K, track)
-        for i, v in enumerate(scalars.tolist()[1:]):
-            tallies[i] += v
-    else:
-        queue = DrainQueue(_drain)
-        for start in starts:
-            queue.push(*_count_chunk(buf[start : start + chunk_size], K, track))
-        queue.flush()
-        acc = stack.fold()
-
-    n_invalid, n_ambig, n_valid, n_counted = tallies
-    if n_invalid:
-        raise EncodeError(DNAAlphabet2(), "<batch input>")
-    if n_ambig and not config.skip_ambiguous:
-        raise EncodeError(DNAAlphabet2(), "<ambiguous base>")
+    acc, tallies = _count_stream(
+        buf, K, chunk_size, lambda c: _count_chunk(c, K, track), merge_compact_tables
+    )
+    n_invalid, n_ambig, *tracked = tallies
+    _check_bytes(n_invalid, n_ambig, config)
+    n_valid, n_counted = tracked if track else (0, 0)
     if dbg and n_valid != n_counted:
         raise RuntimeError(
             "checked mode: count conservation violated — "
@@ -181,14 +224,32 @@ def canonical_count_bytes(
     kmers = acc[0][keep].cpu().numpy().view(np.uint64)
     counts = acc[1][keep].cpu().numpy()
     if metrics is not None:
-        n_windows = max(L - K + 1, 0)
+        n_windows = max(buf.shape[0] - K + 1, 0)
         metrics.end_batch(
-            bases_in=L,
+            bases_in=buf.shape[0],
             windows_out=n_valid,
             windows_skipped=n_windows - n_valid,
             distinct_kmers=int(kmers.shape[0]),
         )
     return kmers, counts
+
+
+def _canonical_count_multiword(data, config: CountConfig, device):
+    """K > 31: multi-word registers, the same chunk stream as K <= 31.
+    As in the reference, no metrics batch is recorded and checked mode
+    adds no conservation check at these K."""
+    K = config.K
+    up = _upload(data, config, device)
+    if up is None:
+        return np.zeros(0, object), np.zeros(0, np.int64)
+    buf, chunk_size = up
+    acc, (n_invalid, n_ambig) = _count_stream(
+        buf, K, chunk_size, lambda c: _count_chunk_mw(c, K), merge_compact_tables_mw
+    )
+    _check_bytes(n_invalid, n_ambig, config)
+    keep = acc[1] > 0
+    words = acc[0][:, keep].cpu().numpy()
+    return words_to_ints(words), acc[1][keep].cpu().numpy()
 
 
 def canonical_count(data, K: int = 31, skip_ambiguous: bool = True, device="cuda"):
@@ -220,7 +281,7 @@ def canonical_count_records(
     device="cuda",
 ):
     """Count canonical K-mers over a CSR record batch (e.g. from
-    :func:`kmers_tpu.io.read_fastx`); windows never span records.
+    :func:`kmers_tpu_torch.io.read_fastx`); windows never span records.
     Requires ``skip_ambiguous=True``."""
     if not config.skip_ambiguous:
         raise ValueError("record-batch counting requires skip_ambiguous=True")
@@ -233,11 +294,10 @@ def canonical_count_records(
 def counts_lookup(kmers: np.ndarray, counts: np.ndarray, queries) -> np.ndarray:
     """Multiplicity of each query kmer in a sorted count table (0 if absent).
 
-    ``queries``: uint64 register values or :class:`Kmer` objects (their
-    canonical form is looked up, matching how the table was built).
+    ``queries``: register values or :class:`~kmers_tpu_torch.kmer.Kmer`
+    objects (their canonical form is looked up, matching how the table was
+    built).
     """
-    from kmers_tpu.kmer import Kmer
-
     if isinstance(queries, (Kmer, int, np.integer)):
         queries = [queries]
     elif isinstance(queries, np.ndarray) and queries.ndim == 0:
@@ -246,7 +306,8 @@ def counts_lookup(kmers: np.ndarray, counts: np.ndarray, queries) -> np.ndarray:
         x.canonical().value if isinstance(x, Kmer) else int(x) for x in queries
     ]
     kmers = np.asarray(kmers)
-    q = np.array(vals, dtype=np.uint64)
+    # K > 31 tables are object arrays of Python ints; match their dtype
+    q = np.array(vals, dtype=object if kmers.dtype == object else np.uint64)
     idx = np.searchsorted(kmers, q)
     idx_c = np.clip(idx, 0, max(kmers.size - 1, 0))
     hit = (kmers.size > 0) & (kmers[idx_c] == q)
@@ -255,7 +316,4 @@ def counts_lookup(kmers: np.ndarray, counts: np.ndarray, queries) -> np.ndarray:
 
 def counts_to_dict(kmers: np.ndarray, counts: np.ndarray, K: int):
     """Materialize a (kmers, counts) table as {Kmer: int}."""
-    from kmers_tpu.kmer import Kmer
-
-    A = DNAAlphabet2()
-    return {Kmer.unsafe(A, K, int(k)): int(c) for k, c in zip(kmers, counts)}
+    return {Kmer.unsafe(K, int(k)): int(c) for k, c in zip(kmers, counts)}

@@ -1,6 +1,8 @@
 """The port's kernel build (``kmers_tpu_torch/ops/kernels/_build.py``) and
 its register conversions (``kmers_tpu_torch/convert.py``), on the CPU."""
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -28,7 +30,56 @@ def test_library_name_tracks_sources_and_flags(monkeypatch, tmp_path):
 
 def test_sources_are_the_kernels():
     names = {p.name for p in _build._sources()}
-    assert {"window_kernel.cu", "rle_kernel.cu"} <= names
+    assert {"window_kernel.cu", "rle_kernel.cu", "multiword_kernel.cu"} <= names
+
+
+# stands in for nvcc: logs its arguments, writes its -o file, and fails on
+# a source named bad.cu
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if any(a.endswith("bad.cu") for a in args):
+    print("bad.cu: error")
+    sys.exit(2)
+open(args[args.index("-o") + 1], "w").close()
+"""
+
+
+def _fake_nvcc(monkeypatch, tmp_path, sources):
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in sources:
+        (src / name).write_text("// kernel\n")
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    return log
+
+
+def test_compile_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    log = _fake_nvcc(monkeypatch, tmp_path, ["a.cu", "b.cu"])
+    out = tmp_path / "lib.so"
+    _build._compile(out, tmp_path)
+    calls = log.read_text().splitlines()
+    compiles = sorted(c for c in calls if " -c " in c)
+    assert len(calls) == 3 and len(compiles) == 2
+    assert compiles[0].endswith("a.cu") and compiles[1].endswith("b.cu")
+    link = next(c for c in calls if " -c " not in c)
+    assert "-shared" in link and link.endswith(f"{tmp_path}/a.o {tmp_path}/b.o")
+    assert out.exists()
+
+
+def test_compile_failure_names_the_source(monkeypatch, tmp_path):
+    log = _fake_nvcc(monkeypatch, tmp_path, ["a.cu", "bad.cu"])
+    with pytest.raises(RuntimeError, match="bad.cu"):
+        _build._compile(tmp_path / "lib.so", tmp_path)
+    # both sources were compiled, and nothing was linked
+    assert len(log.read_text().splitlines()) == 2
 
 
 def test_keys_round_trip_with_sentinel():

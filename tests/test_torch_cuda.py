@@ -2,11 +2,14 @@
 card.  Every test carries the ``cuda`` marker and skips without a CUDA
 device; run them on a GPU host with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
 
 from kmers_tpu_torch.convert import SENTINEL
+from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
 from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
 from kmers_tpu_torch.ops.kernels.window_kernel import (
     canonical_windows,
@@ -107,3 +110,52 @@ def test_slice_on_cuda_matches_cpu(cuda):
     assert canonical_windows.launches - k0 == 4 and rle_unit.launches - w0 == 4
     want = canonical_count_bytes(data, cfg, device="cpu")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("K", [32, 33, 47, 62, 63])
+@pytest.mark.parametrize("L", [1, 31, 255, 256, 257, 5003, (1 << 19) - 46])
+def test_multiword_kernel_matches_plain(cuda, K, L):
+    b = torch.from_numpy(_bytes(L, L + K, invalid=True)).to(cuda)
+    before = canonical_words.launches
+    got = canonical_words(b, K)
+    torch.cuda.synchronize()
+    assert canonical_words.launches == before + 1
+    _assert_same(got, canonical_words_plain(b.cpu(), K))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 524243])
+def test_multiword_kernel_on_unaligned_views(cuda, offset):
+    buf = torch.from_numpy(_bytes(1 << 20, offset)).to(cuda)
+    view = buf[offset : offset + (1 << 19)]
+    got = canonical_words(view, 47)
+    torch.cuda.synchronize()
+    _assert_same(got, canonical_words_plain(view.cpu(), 47))
+
+
+def _string_counter(text, k):
+    """{canonical register: count} from Python strings alone."""
+    text = text.upper().replace("U", "T")
+    comp = str.maketrans("ACGT", "TGCA")
+    digits = str.maketrans("ACGT", "0123")
+    out = collections.Counter()
+    for i in range(len(text) - k + 1):
+        w = text[i : i + k]
+        if set(w) <= {"A", "C", "G", "T"}:
+            out[int(min(w, w.translate(comp)[::-1]).translate(digits), 4)] += 1
+    return dict(out)
+
+
+@pytest.mark.parametrize("K", [47, 80])
+def test_multiword_slice_on_cuda_matches_string_counter(cuda, K):
+    rng = np.random.default_rng(K)
+    data = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, 60_000)]
+    data[rng.integers(0, data.size, 30)] = ord("N")
+    data[20_000:20_500] = data[:500]  # a repeat across chunks
+    cfg = CountConfig(K=K, chunk_size=1 << 13)
+    k3, w0 = canonical_words.launches, rle_unit.launches
+    kmers, counts = canonical_count_bytes(data, cfg, device="cuda")
+    n_chunks = len(range(0, data.size - K + 1, (1 << 13) - (K - 1)))
+    assert canonical_words.launches - k3 == (n_chunks if K <= 63 else 0)
+    assert rle_unit.launches - w0 == n_chunks
+    assert kmers.dtype == object and counts.max() >= 2
+    assert dict(zip(kmers.tolist(), counts.tolist())) == _string_counter(data.tobytes().decode(), K)

@@ -1,6 +1,8 @@
-"""The port never imports jax: a fresh interpreter imports
-``kmers_tpu_torch``, runs the main path and the CLI on the CPU, and finds no
-``jax`` in ``sys.modules``."""
+"""The port never imports jax, nor anything of the JAX package
+``kmers_tpu``: a fresh interpreter imports ``kmers_tpu_torch``, runs the
+main path (K = 7 and K = 40) and the CLI on the CPU, and finds neither in
+``sys.modules``; and no source of the port or of ``chip_smoke.py`` has
+such an import."""
 
 import json
 import os
@@ -16,6 +18,9 @@ ROOT = Path(__file__).resolve().parents[1]
 DATA = b"ACGTTGCANNacgtaacc" * 50
 TOTAL = 49 * 10 + 2 * 2
 
+# 120 certain bases: 120 - 40 + 1 windows of K = 40, in two chunks
+DATA_40 = b"ACGT" * 30
+
 SCRIPT = f"""
 import json, sys
 import kmers_tpu_torch
@@ -23,8 +28,16 @@ from kmers_tpu_torch.__main__ import main
 kmers, counts = kmers_tpu_torch.canonical_count_bytes(
     {DATA!r}, kmers_tpu_torch.CountConfig(K=7, chunk_size=100), device="cpu",
 )
+kmers40, counts40 = kmers_tpu_torch.canonical_count_bytes(
+    {DATA_40!r}, kmers_tpu_torch.CountConfig(K=40, chunk_size=64), device="cpu",
+)
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--device", "cpu"])
-print(json.dumps({{"total": int(counts.sum()), "jax": "jax" in sys.modules}}))
+print(json.dumps({{
+    "total": int(counts.sum()),
+    "total40": int(counts40.sum()),
+    "jax": "jax" in sys.modules,
+    "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu"),
+}}))
 """
 
 
@@ -39,11 +52,32 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 2  # the CLI's top line, then the script's result
-    assert json.loads(lines[-1]) == {"total": TOTAL, "jax": False}
+    assert json.loads(lines[-1]) == {
+        "total": TOTAL, "total40": 4 * 30 - 40 + 1, "jax": False, "kmers_tpu": [],
+    }
     assert json.loads(proc.stderr.strip().splitlines()[-1])["total"] == (12 - 4) + (7 - 4)
+
+
+SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
 
 
 def test_port_sources_do_not_import_jax():
     pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
-    for path in [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in SOURCES:
         assert not pattern.search(path.read_text()), path
+
+
+# ``kmers_tpu`` followed by anything but more of a name (``kmers_tpu_torch``)
+JAX_PACKAGE_IMPORT = re.compile(r"^\s*(import|from)\s+kmers_tpu(?![\w])", re.M)
+
+
+def test_port_sources_do_not_import_the_jax_package():
+    for path in SOURCES:
+        assert not JAX_PACKAGE_IMPORT.search(path.read_text()), path
+
+
+def test_jax_package_import_pattern():
+    for line in ("from kmers_tpu.kmer import Kmer", "import kmers_tpu", "  from kmers_tpu import io"):
+        assert JAX_PACKAGE_IMPORT.search(line), line
+    for line in ("from kmers_tpu_torch import convert", "import kmers_tpu_torch", "# from kmers_tpu"):
+        assert not JAX_PACKAGE_IMPORT.search(line), line
