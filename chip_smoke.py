@@ -9,8 +9,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
 2. build: compile the kernels from ``kmers_tpu_torch/csrc`` with nvcc;
 3. kernels: each kernel bit-exact against its plain torch version on the
    card at the main paths' shapes (K1 and K2 at 2^20, K3 at 2^19 and
-   K = 32, 33, 47, 63, each front-end on four views), with kernel, plain
-   and (for K2) library times (CUDA events, median of 20);
+   K = 32, 33, 47, 63, each front-end on four views; K1's hash mode on the
+   same four views at K = 1, 21, 31 and on the whole chromosome; K6 at its
+   five (bps, K, canonical) cases on 2^20 symbols at an odd offset and on
+   the whole chromosome), with kernel, plain and (for K2) library times
+   (CUDA events, median of 20);
 4. slice K = 31: canonical counting of a synthetic 48,129,895-base
    chromosome (the length of GRCh37 chr21) on the card, exactly equal to
    an independent numpy reference, its first 100 kb equal to a
@@ -20,7 +23,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
    launch counts, a stage breakdown with synchronising timers and a
    ``torch.profiler`` breakdown with the device's busy share; then a few
    hundred kb at K = 63 (K3, three words) and K = 80 (plain windows)
-   against the numpy reference.
+   against the numpy reference;
+6. minhash + extract: on the same chromosome, ``minhash_sketch`` at K = 21,
+   s = 1000 (K1's hash mode, with a ``torch.profiler`` breakdown) through
+   the full-width fallback, and through the exact prefix on the chromosome
+   without its poly-A/tandem region,
+   ``extract_kmers`` at K = 31 and ``minimizer_select`` at K = 15, W = 10
+   (K6), each equal to a numpy reference; ``sketch_fastx_stream`` over a
+   40-record FASTA equal to the one-shot sketch; the CLI's ``sketch`` and
+   ``dist`` on two FASTAs of 2 Mb against numpy sketches; K = 32 minhash
+   and extraction (plain torch) on 300 kb against numpy.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON, and the one before that the card's name and
@@ -49,9 +61,16 @@ K = 31
 CHUNK = 1 << 20
 K_MW = 47
 CHUNK_MW = 1 << 19
+K_SKETCH = 21  # Mash's default k and s
+S_SKETCH = 1000
+#: K6's cases: (bps, K, canonical)
+GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False)]
 #: H100 SXM device memory rate (NVIDIA data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 WORD_BITS = 62
+#: FxHash's multiplier (a hash of a one-word register is reg * FX mod 2^64)
+FX = np.uint64(0x517CC1B727220A95)
+ALL_ONES = np.uint64(2**64 - 1)
 
 
 def log(msg: str) -> None:
@@ -150,6 +169,41 @@ def numpy_reference(seq: np.ndarray, k: int):
     return words[:, starts], counts
 
 
+def numpy_windows(seq: np.ndarray, k: int):
+    """Forward and canonical k-mer registers (k <= 32, uint64, first base
+    in the highest bits) of every window of ``seq``, and the windows'
+    validity, with numpy alone."""
+    n = seq.size - k + 1
+    up = seq & 0xDF
+    good = np.isin(up, np.frombuffer(b"ACGTU", np.uint8))
+    codes = (((seq >> 1) ^ (seq >> 2)) & 3).astype(np.uint64)
+    fw = np.zeros(n, np.uint64)
+    rc = np.zeros(n, np.uint64)
+    for j in range(k):
+        c = codes[j : j + n]
+        np.left_shift(fw, np.uint64(2), out=fw)
+        np.bitwise_or(fw, c, out=fw)
+        np.bitwise_or(rc, (np.uint64(3) - c) << np.uint64(2 * j), out=rc)
+    bad = np.concatenate([[0], np.cumsum(~good, dtype=np.int64)])
+    return fw, np.minimum(fw, rc), (bad[k:] - bad[:n]) == 0
+
+
+def numpy_sketch(seq: np.ndarray, k: int, s: int) -> np.ndarray:
+    """The s smallest distinct FxHashes of the canonical k-mers (k <= 32)
+    of ``seq``: the valid canonical registers of :func:`numpy_windows`,
+    times the FxHash constant mod 2^64, distinct and sorted."""
+    _, can, valid = numpy_windows(seq, k)
+    h = np.sort(can[valid] * FX)
+    return h[np.concatenate([[True], h[1:] != h[:-1]])][:s]
+
+
+def numpy_jaccard(a: np.ndarray, b: np.ndarray) -> float:
+    """Mash's estimate: the share of the s smallest of the union that lie
+    in both sketches, with s the smaller sketch's size."""
+    merged = np.union1d(a, b)[: min(a.size, b.size)]
+    return float(np.isin(merged, np.intersect1d(a, b)).sum()) / float(merged.size)
+
+
 def join_words(words: np.ndarray) -> np.ndarray:
     """``(W, n)`` reference words -> an object array of Python ints."""
     out = words[0].astype(object)
@@ -211,26 +265,40 @@ def torch_equal(a, b) -> bool:
     return torch.equal(a.reshape(-1).cpu(), b.reshape(-1).cpu())
 
 
-def device_profile(fn):
-    """Run ``fn`` once under ``torch.profiler``: ``(wall_s, busy_s,
-    {category: device_s}, {kernel: [calls, device_s]})``; ``busy_s`` is the
-    union of the device's kernel and copy intervals."""
+def device_profile(fn, reps: int = 1, warm: bool = False):
+    """Run ``fn`` ``reps`` times under ``torch.profiler``: per call,
+    ``(wall_s, busy_s, {category: device_s}, {kernel: [calls, device_s]})``;
+    ``busy_s`` is the union of the device's kernel and copy intervals.  A
+    tiny kernel (and with ``warm`` one untimed call of ``fn``) runs first,
+    inside the trace: the trace can miss the device's first milliseconds
+    of work.  Only device events that start inside the ``timed calls``
+    range are counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        torch.ones(1, device="cuda").add_(1)
+        if warm:
+            fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function("timed calls"):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == "timed calls")
     spans = []
     per_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in events:
+        # (the range itself also shows on the device's timeline)
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.time_range.start < start \
+                or e.name == "timed calls":
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        per_name[e.name][0] += 1
-        per_name[e.name][1] += (e.time_range.end - e.time_range.start) / 1e6
+        per_name[e.name][0] += 1 / reps
+        per_name[e.name][1] += (e.time_range.end - e.time_range.start) / 1e6 / reps
     busy, end = 0.0, None
     for s, e in sorted(spans):
         if end is None or s > end:
@@ -244,18 +312,26 @@ def device_profile(fn):
         low = name.lower()
         if "canonical_windows_mw_kernel" in name:
             cat = "K3 canonical_words"
+        elif "canonical_windows_kernel" in name:
+            cat = "K1 canonical_windows / canonical_hashes"
+        elif "general_windows_kernel" in name:
+            cat = "K6 windows_general"
         elif "rle_unit_kernel" in name:
             cat = "K2 rle_unit"
+        elif "dtod" in low:
+            cat = "device-to-device copies"
         elif "dtoh" in low or "device -> pageable" in low or "device -> pinned" in low:
             cat = "download (D2H copies)"
         elif "htod" in low or "-> device" in low:
             cat = "upload (H2D copies)"
+        elif "topk" in low or "kth" in low:
+            cat = "torch.topk (radix select)"
         elif ("sort" in low or "radix" in low) and "searchsorted" not in low:
             cat = "torch.sort (radix sort)"
         else:
             cat = "other (elementwise, scan, gather, scatter, search)"
         categories[cat] += secs
-    return wall, busy / 1e6, categories, per_name
+    return wall, busy / 1e6 / reps, categories, per_name
 
 
 @contextlib.contextmanager
@@ -330,9 +406,13 @@ def phase_kernels(chrom: np.ndarray):
     import torch
 
     from kmers_tpu_torch.convert import SENTINEL, n_words
+    from kmers_tpu_torch.ops.encode import classify_2bit
+    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
     from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
     from kmers_tpu_torch.ops.kernels.window_kernel import (
+        canonical_hashes,
+        canonical_hashes_plain,
         canonical_windows,
         canonical_windows_plain,
     )
@@ -364,6 +444,64 @@ def phase_kernels(chrom: np.ndarray):
     k1_ms = median_ms(lambda: canonical_windows(clean, K))
     k1_plain_ms = median_ms(lambda: canonical_windows_plain(clean, K))
     log(f"[kernels] K1 at 2^20 bytes, K=31: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+
+    # K1's hash mode: the same views; the byte counters equal register mode's
+    hash_err = 0.0
+    for k in (1, 21, 31):
+        for name, view in _views(buf, CHUNK, 30):
+            got = canonical_hashes(view, k)
+            want = canonical_hashes_plain(view, k)
+            regs = canonical_windows(view, k)
+            torch.cuda.synchronize()
+            require(all(torch_equal(g, w) for g, w in zip(got, want)),
+                    f"K1 hash mode != plain at K={k}, {name}")
+            require(torch_equal(got[1], regs[1]) and torch_equal(got[2], regs[2]),
+                    f"K1 hash mode counters at K={k}, {name}")
+            require(torch.equal(got[0] == SENTINEL, regs[0] == SENTINEL),
+                    f"K1 hash mode validity at K={k}, {name}")
+            hash_err = max(hash_err, max_abs_err(got, want))
+        log(f"[kernels] K1 canonical_hashes K={k}: bit-equal to plain on 4 views, "
+            f"counters equal to register mode's (n_invalid={int(got[1])}, n_ambig={int(got[2])})")
+    # the main path's shape: the whole chromosome in one launch
+    whole = torch.from_numpy(chrom).to(dev)
+    got = canonical_hashes(whole, K_SKETCH)
+    want = canonical_hashes_plain(whole, K_SKETCH)
+    require(all(torch_equal(g, w) for g, w in zip(got, want)), "K1 hash mode != plain on the chromosome")
+    hash_err = max(hash_err, max_abs_err(got, want))
+    del got, want
+    hash_ms = median_ms(lambda: canonical_hashes(whole, K_SKETCH))
+    hash_plain_ms = median_ms(lambda: canonical_hashes_plain(whole, K_SKETCH))
+    log(f"[kernels] K1 hash mode on {chrom.size} bytes, K={K_SKETCH}: kernel {hash_ms:.4f} ms, "
+        f"plain {hash_plain_ms:.4f} ms")
+
+    # K6: codes below 2^bps with 0.5 % bad symbols, a view at an odd offset
+    gen_err = 0.0
+    flags = torch.from_numpy(rng.random(CHUNK + 64) > 0.005).to(dev)
+    for bps, k, canonical in GENERAL_CASES:
+        codes = torch.from_numpy(rng.integers(0, 1 << bps, CHUNK + 64).astype(np.uint8)).to(dev)
+        c, g = codes[33 : 33 + CHUNK], flags[33 : 33 + CHUNK]
+        got = windows_general(c, g, k, bps, canonical)
+        want = windows_general_plain(c, g, k, bps, canonical)
+        torch.cuda.synchronize()
+        require(torch_equal(got, want), f"K6 != plain at bps={bps}, K={k}, canonical={canonical}")
+        n_valid = int((got != SENTINEL).sum())
+        require(CHUNK // 2 < n_valid < CHUNK - k, f"K6 valid windows at bps={bps}, K={k}")
+        gen_err = max(gen_err, max_abs_err([got], [want]))
+        log(f"[kernels] K6 windows_general bps={bps} K={k} canonical={canonical}: bit-equal to "
+            f"plain on 2^20 symbols at offset 33 ({n_valid} valid windows)")
+    # the main path's shape: extract_kmers' codes of the whole chromosome, K = 31
+    codes, certain, _ = classify_2bit(whole)
+    codes = codes.to(torch.uint8)
+    got = windows_general(codes, certain, K, 2, False)
+    want = windows_general_plain(codes, certain, K, 2, False)
+    require(torch_equal(got, want), "K6 != plain on the chromosome")
+    gen_err = max(gen_err, max_abs_err([got], [want]))
+    del got, want
+    gen_ms = median_ms(lambda: windows_general(codes, certain, K, 2, False))
+    gen_plain_ms = median_ms(lambda: windows_general_plain(codes, certain, K, 2, False))
+    log(f"[kernels] K6 on {chrom.size} symbols, bps=2, K={K}: kernel {gen_ms:.4f} ms, "
+        f"plain {gen_plain_ms:.4f} ms")
+    del whole, codes, certain
 
     k3_err = 0.0
     for k in (32, 33, 47, 63):
@@ -438,6 +576,20 @@ def phase_kernels(chrom: np.ndarray):
             max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
             # one byte in, W 8-byte words out per position; counters
             bound_ms=bound_ms(CHUNK_MW * (1 + 8 * W) + 16), bound_by="bytes", library_ms=None,
+        ),
+        "canonical_hashes": dict(
+            route="cuda", source="kmers_tpu_torch/csrc/window_kernel.cu",
+            replaces="kmers_tpu/ops/pallas/window_kernel.py:518",
+            max_abs_err=hash_err, ms=hash_ms, plain_ms=hash_plain_ms,
+            # one byte in, one 8-byte hash key out per position; counters
+            bound_ms=bound_ms(chrom.size * (1 + 8) + 16), bound_by="bytes", library_ms=None,
+        ),
+        "windows_general": dict(
+            route="cuda", source="kmers_tpu_torch/csrc/general_kernel.cu",
+            replaces="kmers_tpu/ops/pallas/general_kernel.py:80",
+            max_abs_err=gen_err, ms=gen_ms, plain_ms=gen_plain_ms,
+            # a uint8 code and a bool flag in, one 8-byte register out per position
+            bound_ms=bound_ms(chrom.size * (1 + 1 + 8)), bound_by="bytes", library_ms=None,
         ),
     }
 
@@ -566,7 +718,7 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
     for cat, s in categories.most_common():
         log(f"[slice K={K_MW}]   {cat}: {1e3 * s:.3f} ms device time")
     for name, (calls, s) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        log(f"[slice K={K_MW}]   kernel {name[:90]}: {calls} calls, {1e3 * s:.3f} ms")
+        log(f"[slice K={K_MW}]   kernel {name[:90]}: {calls:g} calls, {1e3 * s:.3f} ms")
 
     t0 = time.perf_counter()
     ref_w, ref_c = numpy_reference(chrom, K_MW)
@@ -601,6 +753,177 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
     return launches
 
 
+def _fasta(path: Path, records) -> None:
+    path.write_bytes(b"".join(b">r%d\n%s\n" % (i, r.tobytes()) for i, r in enumerate(records)))
+
+
+def _cli(*args) -> str:
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-m", "kmers_tpu_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f"CLI {args[0]} failed: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _log_profile(tag: str, fn, smi: str, reps: int = 3) -> None:
+    """Log the per-call ``torch.profiler`` breakdown of ``reps`` calls."""
+    p_wall, busy, categories, per_name = device_profile(fn, reps, warm=True)
+    log(f"[{tag}] profile of {reps} calls: {p_wall:.4f} s wall a call, device busy {busy:.4f} s "
+        f"({100 * busy / p_wall:.1f} % of the call; {smi})")
+    for cat, secs in categories.most_common():
+        log(f"[{tag}]   {cat}: {1e3 * secs:.3f} ms device time a call")
+    for name, (calls, secs) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        log(f"[{tag}]   kernel {name[:90]}: {calls:g} calls, {1e3 * secs:.3f} ms a call")
+
+
+def phase_sketch_extract(chrom: np.ndarray, smi: str):
+    """MinHash at K = 21 (K1's hash mode) through both selection routes,
+    and extraction at K = 31 and minimizers at K = 15, W = 10 (K6) on the
+    whole chromosome, each against numpy; the streamed sketch, the CLI's
+    sketch and dist, and K = 32; returns the launch counts of the main
+    runs, summed."""
+    import torch
+
+    from kmers_tpu_torch import extract_kmers, minhash_sketch, minimizer_select, sketch_fastx_stream
+    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_hashes
+    from kmers_tpu_torch.pipelines import join_records_with_n
+    from kmers_tpu_torch.pipelines import minhash as minhash_module
+
+    L = chrom.size
+    launches = collections.Counter()
+    # warm-up on 1 Mb (first use of torch's topk, unique, nonzero kernels)
+    minhash_sketch(chrom[:CHUNK], K=K_SKETCH, s=S_SKETCH, device="cuda")
+    extract_kmers(chrom[:CHUNK], K=K, device="cuda")
+    minimizer_select(chrom[:CHUNK], K=15, W=10, skip_ambiguous=True, device="cuda")
+    torch.cuda.synchronize()
+
+    # 1. minhash.  The chromosome's 50 kb poly-A run puts 50,000 copies of
+    # one hash in the 4 s-key prefix, so its sketch takes the full-width
+    # fallback; without the poly-A/tandem region the prefix is exact.
+    # ``minhash._smallest`` runs once on the exact route, twice on the
+    # fallback.
+    def sketch_route(seq):
+        calls = []
+        smallest = minhash_module._smallest
+        minhash_module._smallest = lambda *a: calls.append(1) or smallest(*a)
+        try:
+            canonical_hashes.launches = 0
+            t0 = time.perf_counter()
+            sk = minhash_sketch(seq, K=K_SKETCH, s=S_SKETCH, device="cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            minhash_module._smallest = smallest
+        launches["canonical_hashes"] += canonical_hashes.launches
+        require(canonical_hashes.launches >= 1, "minhash did not launch K1's hash mode")
+        return sk, wall, {1: "exact prefix", 2: "full-width fallback"}[len(calls)]
+
+    tr = L // 3
+    clean = np.concatenate([chrom[:tr], chrom[tr + 100_000 :]])
+    for tag, seq, want_route in [("sketch", chrom, "full-width fallback"),
+                                 ("sketch-exact", clean, "exact prefix")]:
+        sketch, wall, route = sketch_route(seq)
+        log(f"[{tag}] minhash_sketch K={K_SKETCH} s={S_SKETCH} on {seq.size} bases: {wall:.4f} s wall, "
+            f"{seq.size / wall:.0f} bases/s, {route}, canonical_hashes launches "
+            f"{canonical_hashes.launches} ({smi})")
+        require(route == want_route, f"{tag} took the {route}, not the {want_route}")
+        _log_profile(tag, lambda: minhash_sketch(seq, K=K_SKETCH, s=S_SKETCH, device="cuda"), smi)
+        t0 = time.perf_counter()
+        want = numpy_sketch(seq, K_SKETCH, S_SKETCH)
+        require(sketch.dtype == np.uint64 and np.array_equal(sketch, want),
+                f"{tag}: minhash sketch differs from the numpy reference")
+        log(f"[{tag}] equal to the numpy sketch ({want.size} hashes; reference in "
+            f"{time.perf_counter() - t0:.1f} s)")
+    del clean, seq
+
+    # 2. extraction of every forward 31-mer
+    windows_general.launches = 0
+    t0 = time.perf_counter()
+    vals, pos = extract_kmers(chrom, K=K, canonical=False, device="cuda")
+    wall = time.perf_counter() - t0
+    launches["windows_general"] += windows_general.launches
+    log(f"[extract] extract_kmers K={K} on {L} bases: {wall:.4f} s wall, {L / wall:.0f} bases/s, "
+        f"{vals.size} k-mers, windows_general launches {windows_general.launches} ({smi})")
+    require(windows_general.launches >= 1, "extract_kmers did not launch K6")
+    _log_profile("extract", lambda: extract_kmers(chrom, K=K, canonical=False, device="cuda"), smi)
+    fw, can, valid = numpy_windows(chrom, K)
+    require(vals.dtype == np.uint64 and np.array_equal(vals, fw[valid]), "extracted values differ from numpy")
+    require(np.array_equal(pos, np.flatnonzero(valid)), "extracted positions differ from numpy")
+    log("[extract] values and positions equal to numpy")
+    del vals, pos, fw, can, valid
+
+    # 3. minimizers (minimap2's k and w)
+    windows_general.launches = 0
+    t0 = time.perf_counter()
+    mvals, mpos = minimizer_select(chrom, K=15, W=10, canonical=True, skip_ambiguous=True, device="cuda")
+    wall = time.perf_counter() - t0
+    launches["windows_general"] += windows_general.launches
+    log(f"[minimizers] minimizer_select K=15 W=10 on {L} bases: {wall:.4f} s wall, "
+        f"{L / wall:.0f} bases/s, {mvals.size} minimizers, windows_general launches "
+        f"{windows_general.launches} ({smi})")
+    require(windows_general.launches >= 1, "minimizer_select did not launch K6")
+    _log_profile("minimizers", lambda: minimizer_select(
+        chrom, K=15, W=10, canonical=True, skip_ambiguous=True, device="cuda"), smi)
+    t0 = time.perf_counter()
+    _, can, valid = numpy_windows(chrom, 15)
+    h = np.where(valid, can * FX, ALL_ONES)
+    view = np.lib.stride_tricks.sliding_window_view(h, 10)
+    arg = np.argmin(view, axis=1)
+    win_pos = np.arange(arg.size) + arg  # leftmost argmin of each window
+    # a window with no valid k-mer selects nothing; repeats are dropped
+    keep = np.concatenate([[True], win_pos[1:] != win_pos[:-1]]) & (h[win_pos] != ALL_ONES)
+    ref_pos = win_pos[keep]
+    require(np.array_equal(mpos, ref_pos) and np.array_equal(mvals, can[ref_pos]),
+            "minimizers differ from the numpy reference")
+    log(f"[minimizers] equal to numpy (reference in {time.perf_counter() - t0:.1f} s)")
+    del h, view, arg, win_pos, keep, can, valid, mvals, mpos
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 4. the streamed sketch of a 40-record FASTA
+        rng = np.random.default_rng(3)
+        starts = np.sort(rng.integers(0, L - 200_000, 40))
+        records = [chrom[a : a + int(n)] for a, n in zip(starts, rng.integers(1_000, 200_000, 40))]
+        fa = tmp / "records.fa"
+        _fasta(fa, records)
+        offsets = np.concatenate([[0], np.cumsum([r.size for r in records])])
+        joined = join_records_with_n(np.concatenate(records), offsets)
+        t0 = time.perf_counter()
+        streamed = sketch_fastx_stream(fa, K=K_SKETCH, s=S_SKETCH, batch_bytes=1 << 20,
+                                       chunk_size=1 << 20, device="cuda")
+        wall = time.perf_counter() - t0
+        require(np.array_equal(streamed, minhash_sketch(joined, K=K_SKETCH, s=S_SKETCH, device="cuda")),
+                "streamed sketch differs from the one-shot sketch")
+        log(f"[sketch] sketch_fastx_stream over 40 records ({joined.size} bases, batches of 1 MiB): "
+            f"{wall:.4f} s, equal to the one-shot sketch")
+
+        # 5. the CLI on two overlapping 2 Mb FASTAs
+        a, b = chrom[5_000_000:7_000_000], chrom[6_000_000:8_000_000]
+        _fasta(tmp / "a.fa", [a])
+        _fasta(tmp / "b.fa", [b])
+        (tmp / "a.sk").write_text(_cli("sketch", str(tmp / "a.fa"), "-k", "21", "-s", "1000"))
+        (tmp / "b.sk").write_text(_cli("sketch", str(tmp / "b.fa"), "-k", "21", "-s", "1000"))
+        want_j = numpy_jaccard(numpy_sketch(a, 21, 1000), numpy_sketch(b, 21, 1000))
+        for x, y in [("a.sk", "b.sk"), ("a.fa", "b.fa")]:
+            got = json.loads(_cli("dist", str(tmp / x), str(tmp / y), "-k", "21", "-s", "1000"))
+            require(got["jaccard"] == round(want_j, 6), f"CLI dist {got} != numpy jaccard {want_j}")
+        log(f"[cli] sketch and dist on two 2 Mb FASTAs: {got}, numpy jaccard {want_j:.6f}")
+
+    # 6. K = 32 through plain torch on the card
+    part = chrom[L // 3 - 200_000 : L // 3 + 100_000]
+    before = canonical_hashes.launches, windows_general.launches
+    sk32 = minhash_sketch(part, K=32, s=S_SKETCH, device="cuda")
+    vals, pos = extract_kmers(part, K=32, canonical=True, device="cuda")
+    require((canonical_hashes.launches, windows_general.launches) == before, "K=32 launched a kernel")
+    _, can, valid = numpy_windows(part, 32)
+    require(np.array_equal(sk32, numpy_sketch(part, 32, S_SKETCH)), "K=32 sketch differs from numpy")
+    require(np.array_equal(vals, can[valid]) and np.array_equal(pos, np.flatnonzero(valid)),
+            "K=32 extraction differs from numpy")
+    log(f"[k=32] minhash and canonical extraction on {part.size} bases equal to numpy "
+        f"({vals.size} k-mers) through plain torch")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -616,12 +939,15 @@ def main() -> int:
     entries = phase_kernels(chrom)
     launches_31 = phase_slice(chrom, smi)
     launches_47 = phase_slice_mw(chrom, smi)
+    t0 = time.perf_counter()
+    launches_sketch = phase_sketch_extract(chrom, smi)
+    log(f"[sketch] minhash + extract phase in {time.perf_counter() - t0:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules if m.split(".")[0] == "kmers_tpu"],
             "the JAX package was imported")
 
     # launches: each kernel's count over the paths that run it
-    launches = collections.Counter(launches_31) + collections.Counter(launches_47)
+    launches = collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
     kernels = [
         {"name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
          "launches": launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],

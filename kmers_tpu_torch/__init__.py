@@ -8,14 +8,20 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
 ``io``).
 
 - ``convert``: the register convention (``ceil(K / 31)`` int64 words of 62
-  bits per register, ``INT64_MAX`` sentinel, int64 counts) and conversion
-  of JAX state.
-- ``ops``: classification, window registers, sort-based counting of one-
-  and multi-word registers, and the hand-written CUDA kernels in
+  bits per register, ``INT64_MAX`` sentinel, int64 counts), the hash-key
+  convention (FxHash with the sign bit flipped, so signed order is unsigned
+  hash order) and conversion of JAX state.
+- ``ops``: classification, window registers (2, 4 and 8 bits a symbol),
+  FxHash, minimizers and syncmers, sort-based counting of one- and
+  multi-word registers, and the hand-written CUDA kernels in
   ``ops.kernels`` (sources in ``csrc/``).
-- ``pipelines``: canonical k-mer counting for 1 <= K <= 100.
+- ``pipelines``: canonical k-mer counting for 1 <= K <= 100 and
+  composition vectors; MinHash sketching (``minhash_sketch``,
+  ``StreamingSketcher``, ``sketch_fastx_stream``, ``jaccard``); k-mer
+  extraction (``extract_kmers``, ``spaced_kmers``, ``minimizer_select``,
+  ``syncmer_select``).
 - ``symbols``, ``kmer``, ``io``: ``EncodeError``, a 2-bit DNA ``Kmer``,
-  and a pure-Python FASTA/FASTQ reader.
+  and a pure-Python FASTA/FASTQ reader and batch streamer.
 - ``utils``: checked mode, metrics, the level stack and the drain queue.
 
 Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on
@@ -25,11 +31,20 @@ Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on
 from .convert import SENTINEL
 from .pipelines import (
     CountConfig,
+    StreamingSketcher,
     canonical_count,
     canonical_count_bytes,
     canonical_count_records,
+    composition_vector,
     counts_lookup,
     counts_to_dict,
+    extract_kmers,
+    jaccard,
+    minhash_sketch,
+    minimizer_select,
+    sketch_fastx_stream,
+    spaced_kmers,
+    syncmer_select,
 )
 
 __all__ = [
@@ -38,6 +53,15 @@ __all__ = [
     "canonical_count",
     "canonical_count_bytes",
     "canonical_count_records",
+    "composition_vector",
     "counts_lookup",
     "counts_to_dict",
+    "minhash_sketch",
+    "StreamingSketcher",
+    "sketch_fastx_stream",
+    "jaccard",
+    "extract_kmers",
+    "spaced_kmers",
+    "minimizer_select",
+    "syncmer_select",
 ]

@@ -1,8 +1,9 @@
 """Command-line front-end: ``python -m kmers_tpu_torch count reads.fa``.
 
-The port's counterpart of ``python -m kmers_tpu count`` (without ``-o`` and
-``--stream``, which are not ported yet): the same top lines on stdout and
-the same totals on stderr.
+The port's counterpart of ``python -m kmers_tpu`` for the commands
+``count`` (without ``-o`` and ``--stream``, which are not ported yet),
+``sketch`` and ``dist``: the same lines on stdout and stderr.  Every
+command takes ``--device`` (``cuda``, the default, or ``cpu``).
 """
 
 from __future__ import annotations
@@ -10,9 +11,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import sys
 
 import numpy as np
+
+_DEVICE_HELP = "torch device: cuda runs the kernels, cpu their plain versions"
 
 
 def cmd_count(args):
@@ -40,6 +44,71 @@ def cmd_count(args):
     )
 
 
+def _sketch_file(path, args):
+    from .io import read_fastx
+    from .pipelines import join_records_with_n, minhash_sketch
+
+    seq, off = read_fastx(path)
+    return minhash_sketch(
+        join_records_with_n(seq, off).tobytes(), K=args.k, s=args.size, device=args.device
+    )
+
+
+def cmd_sketch(args):
+    if args.stream:
+        # never loads the file: chunked, mergeable sketching
+        from .pipelines.minhash import sketch_fastx_stream
+
+        sk = sketch_fastx_stream(args.input, K=args.k, s=args.size, device=args.device)
+    else:
+        sk = _sketch_file(args.input, args)
+    # the header records the parameters, so that `dist` can check -k
+    print(f"#kmers_tpu sketch k={args.k} s={args.size}")
+    for h in sk:
+        print(f"{int(h):016x}")
+
+
+def cmd_dist(args):
+    """Mash-style distance between two inputs, each a sketch file written
+    by ``sketch`` (header ``#kmers_tpu sketch k=.. s=..`` and one
+    16-hex-digit hash a line) or a FASTA/FASTQ file sketched on the fly.  A
+    sketch file built with another k than ``-k`` is an error; a file
+    without the header is taken with a warning.  Hashes are deduplicated on
+    load."""
+    from .pipelines.minhash import jaccard
+
+    def load_sketch(path):
+        with open(path, "rb") as f:
+            head = f.read(1)
+        if head in (b">", b"@"):
+            return _sketch_file(path, args)
+        hashes, saw_header = [], False
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                if line.startswith("#"):
+                    if line.startswith("#kmers_tpu sketch"):
+                        saw_header = True
+                        meta = dict(kv.split("=") for kv in line.split()[2:] if "=" in kv)
+                        k_file = int(meta.get("k", args.k))
+                        if k_file != args.k:
+                            raise SystemExit(
+                                f"{path}: sketch was built with k={k_file}, but -k is {args.k}"
+                            )
+                    continue
+                hashes.append(int(line, 16))
+        if not saw_header:
+            print(f"warning: {path} has no sketch header; assuming k={args.k}", file=sys.stderr)
+        return np.unique(np.array(hashes, dtype=np.uint64))
+
+    j = jaccard(load_sketch(args.a), load_sketch(args.b))
+    # Mash distance (Ondov et al. 2016): d = -ln(2j / (1 + j)) / k
+    d = 1.0 if j <= 0 else min(-math.log(2 * j / (1 + j)) / args.k, 1.0)
+    print(json.dumps({"jaccard": round(j, 6), "mash_distance": round(d, 6)}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="kmers_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -56,11 +125,28 @@ def main(argv=None):
         "--checked", action="store_true",
         help="enable checked mode (verifies count conservation)",
     )
-    c.add_argument(
-        "--device", default="cuda",
-        help="torch device: cuda runs the kernels, cpu their plain versions",
-    )
+    c.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     c.set_defaults(fn=cmd_count)
+
+    s = sub.add_parser("sketch", help="MinHash sketch")
+    s.add_argument("input")
+    s.add_argument("-k", type=int, default=16)
+    s.add_argument("-s", "--size", type=int, default=1000)
+    s.add_argument(
+        "--stream", action="store_true",
+        help="stream the file in record batches instead of loading it "
+        "(files larger than host memory)",
+    )
+    s.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    s.set_defaults(fn=cmd_sketch)
+
+    d = sub.add_parser("dist", help="Mash-style distance between two sketches/FASTAs")
+    d.add_argument("a")
+    d.add_argument("b")
+    d.add_argument("-k", type=int, default=16)
+    d.add_argument("-s", "--size", type=int, default=1000)
+    d.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    d.set_defaults(fn=cmd_dist)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -20,6 +20,24 @@ the JAX package.
   for K <= 31 or ``(W, n)``, ``counts`` ``int64`` of shape ``(n,)``, rows
   in ascending order; rows with a zero count are padding.
 
+Hashes (minhash, minimizers, syncmers) follow a second convention:
+
+- The seed-0 FxHash of a single-word register is ``reg * FX mod 2^64``
+  (``ops/hashing.py``), and minhash and minimizers order hashes as
+  **unsigned** 64-bit integers.
+- A hash is kept as an int64 **order key**, ``key = hash ^ (1 << 63)``
+  (the sign bit flipped), so signed order of the keys is unsigned order of
+  the hashes, and ``torch.sort`` / ``torch.topk`` on int64 keys give the
+  JAX package's order.
+- The JAX package's "invalid window" hash is all-ones; its key is
+  ``0x7FFF...FF``, exactly :data:`SENTINEL`.
+- Public outputs stay ``np.uint64`` hashes: :func:`hashes_to_uint64`.
+  :func:`hashes_from_jax` takes the JAX package's ``(hh, hl)`` uint32 pair
+  to keys.
+- A 64-bit register (K = 32 at 2 bits) is a raw bit pattern in int64: it
+  is compared as unsigned (the sign bit flipped) and its public output is
+  its ``np.uint64`` view.
+
 Public outputs are exactly the JAX package's: sorted ``np.uint64`` k-mers
 (K <= 31) or a sorted object array of Python ints (K > 31), and ``np.int64``
 counts.  The functions below convert internal state at the boundary, so
@@ -36,8 +54,11 @@ __all__ = [
     "KEY_BITS_MAX",
     "WORD_BASES",
     "n_words",
+    "SIGN_BIT",
     "keys_from_jax",
     "keys_to_jax",
+    "hashes_from_jax",
+    "hashes_to_uint64",
     "table_from_jax",
     "words_from_jax",
     "words_to_jax",
@@ -50,6 +71,9 @@ SENTINEL = (1 << 63) - 1
 KEY_BITS_MAX = 62
 #: bases in a full register word
 WORD_BASES = KEY_BITS_MAX // 2
+#: ``1 << 63`` as an int64 (``INT64_MIN``): XOR turns a hash into its
+#: order key and back
+SIGN_BIT = -(1 << 63)
 
 _JAX_LIMB_SENT = 0xFFFFFFFF
 _WORD_MASK = np.uint64((1 << KEY_BITS_MAX) - 1)
@@ -85,6 +109,20 @@ def keys_to_jax(keys: torch.Tensor):
     hi = (full >> np.uint64(32)).astype(np.uint32)
     lo = (full & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     return hi, lo
+
+
+def hashes_from_jax(hh, hl, device=None) -> torch.Tensor:
+    """JAX ``(hh, hl)`` uint32 hash pairs -> the port's int64 order keys
+    (all-ones, the JAX invalid hash, becomes :data:`SENTINEL`)."""
+    full = (np.asarray(hh, np.uint32).astype(np.uint64) << np.uint64(32)) | np.asarray(
+        hl, np.uint32
+    ).astype(np.uint64)
+    return torch.from_numpy(full.view(np.int64) ^ np.int64(SIGN_BIT)).to(device)
+
+
+def hashes_to_uint64(keys: torch.Tensor) -> np.ndarray:
+    """The port's int64 order keys -> the public ``np.uint64`` hashes."""
+    return (keys.detach() ^ SIGN_BIT).cpu().numpy().view(np.uint64)
 
 
 def table_from_jax(uh, ul, cnt, device=None):

@@ -1,17 +1,24 @@
 // K1: the fused canonical front-end.  ASCII bytes -> 2-bit code + flag ->
 // canonical K-window register (K <= 31) per position, INT64_MAX at windows
 // that touch a byte other than A/C/G/T/U (either case) and at the last K-1
-// positions; plus the chunk's invalid- and ambiguous-byte counts.
+// positions; plus the chunk's invalid- and ambiguous-byte counts.  In hash
+// mode (emit_hash != 0) a valid window holds instead the order key of the
+// seed-0 FxHash of its canonical register: reg * FX mod 2^64 with bit 63
+// flipped (kmers_tpu_torch/convert.py), so INT64_MAX stays "invalid" (the
+// key of the all-ones hash, whose FxHash preimage is >= 2^62: no K <= 31
+// register reaches it).
 //
 // Replaces the TPU kernel kmers_tpu/ops/pallas/window_kernel.py
 // canonical_windows_u32_pallas (_kernel_u32 with _group8_of_u32,
-// _classify_byte, _is_ambiguous_byte, _canonical); emit_hash is not ported.
+// _classify_byte, _is_ambiguous_byte, _canonical, and _fx_mul for
+// emit_hash).  The TPU kernel multiplied in 16-bit uint32 partial products
+// (_fx_mul); here the multiply is one unsigned 64-bit `*`.
 //
 // What bounds it on an H100: per position it moves 9 bytes of device memory
-// (one byte in, one 8-byte register out), and its inner loop issues O(K)
-// shared-memory reads and shifts (over a hundred integer instructions a
-// position at K = 31), so at large K the instruction issue rate, not
-// memory, is the nearer limit.
+// (one byte in, one 8-byte register or key out), and its inner loop issues
+// O(K) shared-memory reads and shifts (over a hundred integer instructions
+// a position at K = 31; the hash adds one 64-bit multiply), so at large K
+// the instruction issue rate, not memory, is the nearer limit.
 //
 // Design, and where the TPU design does not carry over:
 // - One thread per position.  A block stages its 256 positions plus a K-1
@@ -39,7 +46,9 @@ using kmers::kBlock;
 using kmers::kFlag;
 
 constexpr int kMaxHalo = 30;      // K - 1 for K <= 31
+constexpr uint64_t kFx = 0x517cc1b727220a95ull;   // FxHash's multiplier
 
+template <bool kHash>
 __global__ void __launch_bounds__(kBlock)
 canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
                          int64_t* __restrict__ keys,
@@ -63,7 +72,8 @@ canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
             const uint64_t mask = (1ull << (2 * K)) - 1;
             const uint64_t rc =
                 kmers::swap_bit_pairs(__brevll(~fw & mask)) >> (64 - 2 * K);
-            out = static_cast<int64_t>(fw < rc ? fw : rc);
+            const uint64_t can = fw < rc ? fw : rc;
+            out = static_cast<int64_t>(kHash ? (can * kFx) ^ (1ull << 63) : can);
         }
     }
     keys[i] = out;
@@ -71,14 +81,18 @@ canonical_windows_kernel(const uint8_t* __restrict__ bytes, int64_t n, int K,
 
 }  // namespace
 
-// keys: int64[n]; counters: int64[2] zeroed by the caller (invalid, ambiguous).
+// keys: int64[n]; counters: int64[2] zeroed by the caller (invalid,
+// ambiguous); emit_hash != 0 selects hash mode.
 extern "C" int k1_canonical_windows(const void* bytes, long long n, int K,
-                                    void* keys, void* counters, void* stream) {
+                                    int emit_hash, void* keys, void* counters,
+                                    void* stream) {
     if (K < 1 || K > 31) return static_cast<int>(cudaErrorInvalidValue);
     if (n > 0) {
         const long long blocks = (n + kBlock - 1) / kBlock;
-        canonical_windows_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+        auto kernel = emit_hash ? canonical_windows_kernel<true>
+                                : canonical_windows_kernel<false>;
+        kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint8_t*>(bytes), n, K,
             static_cast<int64_t*>(keys),
             static_cast<unsigned long long*>(counters));

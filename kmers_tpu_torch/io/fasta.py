@@ -1,10 +1,11 @@
 """FASTA/FASTQ ingestion, in pure Python.
 
 Counterpart of the pure-Python scanner of ``kmers_tpu/io/fasta.py``
-(``_scan_python``, ``read_fastx_bytes``, ``read_fastx``); the port keeps
-its own copy and imports nothing of the JAX package.  The JAX package's
-native C++ scanner is not carried over.  Records come back CSR-style: one
-concatenated sequence byte buffer plus record-start offsets.
+(``_scan_python``, ``read_fastx_bytes``, ``read_fastx``, and the batched
+``stream_fastx``); the port keeps its own copy and imports nothing of the
+JAX package.  The JAX package's native C++ scanner is not carried over.
+Records come back CSR-style: one concatenated sequence byte buffer plus
+record-start offsets.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import gzip
 
 import numpy as np
 
-__all__ = ["read_fastx", "read_fastx_bytes"]
+__all__ = ["read_fastx", "read_fastx_bytes", "stream_fastx"]
 
 
 def _scan(data: bytes):
@@ -79,3 +80,64 @@ def read_fastx(path):
     if data[:2] == b"\x1f\x8b":
         data = gzip.decompress(data)
     return read_fastx_bytes(data)
+
+
+def stream_fastx(path, batch_bytes: int = 1 << 26):
+    """Stream a FASTA/FASTQ file as ``(seq_bytes, record_offsets)`` batches.
+
+    Reads ``batch_bytes``-sized blocks and parses each as a CSR record
+    batch, cutting only at record boundaries: records are never split
+    across batches, so a consumer of the batches sees what one parse of the
+    whole file gives.  Host memory stays O(batch + largest record).  Gzip
+    input streams through zlib's inflate.  FASTQ streaming assumes the
+    standard 4-line record form; multi-line FASTQ takes :func:`read_fastx`.
+    """
+    with open(path, "rb") as raw:
+        head = raw.read(2)
+        raw.seek(0)
+        if head == b"\x1f\x8b":
+            with gzip.open(raw) as f:
+                yield from _stream_fastx_file(f, batch_bytes)
+        else:
+            yield from _stream_fastx_file(raw, batch_bytes)
+
+
+def _fastx_cut(buf: bytes, is_fastq: bool) -> int:
+    """Byte index where the trailing (possibly partial) record starts;
+    everything before it is complete records."""
+    if is_fastq:
+        # standard 4-line records: cut after the last full group of 4
+        # lines, which is n_lines % 4 + 1 newlines back from the end (one
+        # more step absorbs a trailing partial line)
+        n_lines = buf.count(b"\n")
+        if n_lines // 4 == 0:
+            return 0
+        pos = len(buf)
+        for _ in range(n_lines % 4 + 1):
+            pos = buf.rfind(b"\n", 0, pos)
+        return pos + 1
+    cut = buf.rfind(b"\n>")
+    return cut + 1 if cut != -1 else 0
+
+
+def _stream_fastx_file(f, batch_bytes: int):
+    carry = b""
+    is_fastq = None
+    while True:
+        block = f.read(batch_bytes)
+        if not block:
+            break
+        buf = carry + block
+        if is_fastq is None:
+            if buf[:1] == b"@":
+                is_fastq = True
+            elif buf[:1] == b">":
+                is_fastq = False
+            else:
+                raise ValueError("malformed FASTA/FASTQ input")
+        cut = _fastx_cut(buf, is_fastq)
+        emit, carry = buf[:cut], buf[cut:]
+        if emit:
+            yield read_fastx_bytes(emit)
+    if carry:
+        yield read_fastx_bytes(carry)

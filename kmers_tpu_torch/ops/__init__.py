@@ -1,5 +1,6 @@
-"""The port's compute plane: classification, window registers, counting of
-one- and multi-word registers, and the CUDA kernels (``ops.kernels``)."""
+"""The port's compute plane: classification, window registers, hashing,
+minimizers, counting of one- and multi-word registers, and the CUDA
+kernels (``ops.kernels``)."""
 
 from .count import (
     SENTINEL,
@@ -9,19 +10,35 @@ from .count import (
     sort_count,
 )
 from .encode import classify_2bit
+from .hashing import fx_hash_u64
+from .minimizer import closed_syncmer_mask, minimizers, minimizers_masked, sliding_min_u64
 from .multiword import (
     canonical_windows_mw,
     canonical_windows_mw_bytes,
     merge_compact_tables_mw,
     sort_count_mw,
 )
-from .windows import canonical_windows_from_codes, window_valid_mask
+from .windows import (
+    canonical_windows_4bit_from_codes,
+    canonical_windows_from_codes,
+    rc_windows_from_codes,
+    window_valid_mask,
+    windows_from_codes,
+)
 
 __all__ = [
     "SENTINEL",
     "classify_2bit",
+    "windows_from_codes",
+    "rc_windows_from_codes",
     "canonical_windows_from_codes",
+    "canonical_windows_4bit_from_codes",
     "window_valid_mask",
+    "fx_hash_u64",
+    "sliding_min_u64",
+    "minimizers",
+    "minimizers_masked",
+    "closed_syncmer_mask",
     "sort_count",
     "compact_counts",
     "merge_sorted_counts",

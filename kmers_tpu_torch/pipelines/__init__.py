@@ -1,21 +1,35 @@
-"""End-to-end workloads of the port: canonical k-mer counting (1 <= K <= 100)."""
+"""End-to-end workloads of the port: canonical k-mer counting
+(1 <= K <= 100) and composition vectors, MinHash sketching, and k-mer
+extraction (every k-mer, spaced, minimizers, closed syncmers)."""
 
 from .canonical_count import (
     CountConfig,
     canonical_count,
     canonical_count_bytes,
     canonical_count_records,
+    composition_vector,
     counts_lookup,
     counts_to_dict,
     join_records_with_n,
 )
+from .extract import extract_kmers, minimizer_select, spaced_kmers, syncmer_select
+from .minhash import StreamingSketcher, jaccard, minhash_sketch, sketch_fastx_stream
 
 __all__ = [
     "CountConfig",
     "canonical_count",
     "canonical_count_bytes",
     "canonical_count_records",
+    "composition_vector",
     "counts_lookup",
     "counts_to_dict",
     "join_records_with_n",
+    "minhash_sketch",
+    "StreamingSketcher",
+    "sketch_fastx_stream",
+    "jaccard",
+    "extract_kmers",
+    "spaced_kmers",
+    "minimizer_select",
+    "syncmer_select",
 ]

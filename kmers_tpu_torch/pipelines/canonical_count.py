@@ -1,4 +1,5 @@
-"""Canonical k-mer counting for 1 <= K <= 100 — the port's main path.
+"""Canonical k-mer counting for 1 <= K <= 100 — the port's main path —
+and the composition vector built on it.
 
 Counterpart of ``kmers_tpu/pipelines/canonical_count.py``.  The input is
 uploaded once; each chunk is a view into it.  Chunk tables are
@@ -36,6 +37,8 @@ from ..symbols import EncodeError
 from ..utils.debug import checked_mode
 from ..utils.levelstack import LevelStack
 from ..utils.streamq import DrainQueue
+from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device
+from .extract import extract_kmers
 
 __all__ = [
     "CountConfig",
@@ -43,12 +46,10 @@ __all__ = [
     "canonical_count_bytes",
     "canonical_count_records",
     "join_records_with_n",
+    "composition_vector",
     "counts_lookup",
     "counts_to_dict",
 ]
-
-_ALPHABET = "DNAAlphabet2"
-
 
 @dataclasses.dataclass(frozen=True)
 class CountConfig:
@@ -75,28 +76,6 @@ class CountConfig:
         if self.chunk_size is not None:
             return self.chunk_size
         return (1 << 19) if self.K > 31 else (1 << 20)
-
-
-def _as_byte_array(data) -> np.ndarray:
-    if isinstance(data, str):
-        data = data.encode("ascii")
-    if isinstance(data, (bytes, bytearray, memoryview)):
-        return np.frombuffer(bytes(data), dtype=np.uint8)
-    arr = np.asarray(data)
-    if arr.dtype != np.uint8:
-        raise TypeError("expected ASCII bytes or a uint8 array")
-    return arr
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is false"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def _count_chunk(chunk: torch.Tensor, K: int, track: bool):
@@ -164,14 +143,14 @@ def _count_stream(buf: torch.Tensor, K: int, chunk_size: int, count_chunk, merge
 
 def _check_bytes(n_invalid: int, n_ambig: int, config: CountConfig) -> None:
     if n_invalid:
-        raise EncodeError(_ALPHABET, "<batch input>")
+        raise EncodeError(ALPHABET, "<batch input>")
     if n_ambig and not config.skip_ambiguous:
-        raise EncodeError(_ALPHABET, "<ambiguous base>")
+        raise EncodeError(ALPHABET, "<ambiguous base>")
 
 
 def _upload(data, config: CountConfig, device):
     """``(buf, chunk_size)``, or None when the input holds no window."""
-    arr = _as_byte_array(data)
+    arr = as_byte_array(data)
     chunk_size = config.resolved_chunk_size
     if chunk_size < config.K:
         raise ValueError(f"chunk_size ({chunk_size}) must be >= K ({config.K})")
@@ -193,7 +172,7 @@ def canonical_count_bytes(
     ``metrics``: an optional :class:`~kmers_tpu_torch.utils.Metrics` that
     records one batch (K <= 31 only, as in the reference).
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if config.K > 31:
         return _canonical_count_multiword(data, config, device)
     if metrics is not None:
@@ -259,23 +238,6 @@ def canonical_count(data, K: int = 31, skip_ambiguous: bool = True, device="cuda
     )
 
 
-def join_records_with_n(seq_bytes, offsets) -> np.ndarray:
-    """Join CSR records with single ``N`` separators, so that no window
-    spans two records in a skip-ambiguous pipeline."""
-    offsets = np.asarray(offsets)
-    seq = np.asarray(seq_bytes, dtype=np.uint8)
-    n_rec = offsets.shape[0] - 1
-    if n_rec <= 1:
-        return seq
-    joined = np.full(seq.shape[0] + n_rec - 1, ord("N"), dtype=np.uint8)
-    pos = 0
-    for i in range(n_rec):
-        r = seq[offsets[i] : offsets[i + 1]]
-        joined[pos : pos + r.shape[0]] = r
-        pos += r.shape[0] + 1
-    return joined
-
-
 def canonical_count_records(
     seq_bytes, offsets, config: CountConfig = CountConfig(), metrics=None,
     device="cuda",
@@ -289,6 +251,27 @@ def canonical_count_records(
         join_records_with_n(seq_bytes, offsets), config, metrics=metrics,
         device=device,
     )
+
+
+def composition_vector(
+    data, K: int = 4, canonical: bool = False, skip_ambiguous: bool = True, device="cuda"
+) -> np.ndarray:
+    """Dense K-mer composition spectrum: a ``(4**K,)`` int64 count vector
+    indexed by the K-mer register value (tetranucleotide frequencies and
+    the like); 1 <= K <= 12.  Canonical K-mers are counted by
+    :func:`canonical_count_bytes`, forward ones extracted by
+    :func:`~kmers_tpu_torch.pipelines.extract.extract_kmers`."""
+    if not 1 <= K <= 12:
+        raise ValueError("composition vectors support 1 <= K <= 12")
+    if canonical:
+        kmers, counts = canonical_count_bytes(
+            data, CountConfig(K=K, skip_ambiguous=skip_ambiguous), device=device
+        )
+        out = np.zeros(4**K, dtype=np.int64)
+        out[kmers.astype(np.int64)] = counts
+        return out
+    vals, _ = extract_kmers(data, K=K, canonical=False, skip_ambiguous=skip_ambiguous, device=device)
+    return np.bincount(vals.astype(np.int64), minlength=4**K).astype(np.int64)
 
 
 def counts_lookup(kmers: np.ndarray, counts: np.ndarray, queries) -> np.ndarray:

@@ -9,13 +9,22 @@ import pytest
 import torch
 
 from kmers_tpu_torch.convert import SENTINEL
+from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
 from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
 from kmers_tpu_torch.ops.kernels.window_kernel import (
+    canonical_hashes,
+    canonical_hashes_plain,
     canonical_windows,
     canonical_windows_plain,
 )
-from kmers_tpu_torch.pipelines.canonical_count import CountConfig, canonical_count_bytes
+from kmers_tpu_torch.pipelines import extract as tex
+from kmers_tpu_torch.pipelines import minhash as tmh
+from kmers_tpu_torch.pipelines.canonical_count import (
+    CountConfig,
+    canonical_count_bytes,
+    composition_vector,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,3 +168,112 @@ def test_multiword_slice_on_cuda_matches_string_counter(cuda, K):
     assert rle_unit.launches - w0 == n_chunks
     assert kmers.dtype == object and counts.max() >= 2
     assert dict(zip(kmers.tolist(), counts.tolist())) == _string_counter(data.tobytes().decode(), K)
+
+
+@pytest.mark.parametrize("K", [1, 21, 31])
+@pytest.mark.parametrize("L", [1, 30, 255, 257, 5003, (1 << 20) - 30])
+def test_window_kernel_hash_mode_matches_plain(cuda, K, L):
+    b = torch.from_numpy(_bytes(L, 3 * L + K, invalid=True)).to(cuda)
+    before = canonical_hashes.launches
+    got = canonical_hashes(b, K)
+    torch.cuda.synchronize()
+    assert canonical_hashes.launches == before + 1
+    _assert_same(got, canonical_hashes_plain(b.cpu(), K))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 1000001])
+def test_window_kernel_hash_mode_on_unaligned_views(cuda, offset):
+    buf = torch.from_numpy(_bytes(1 << 21, offset)).to(cuda)
+    view = buf[offset : offset + (1 << 20)]
+    got = canonical_hashes(view, 21)
+    torch.cuda.synchronize()
+    _assert_same(got, canonical_hashes_plain(view.cpu(), 21))
+    # the error counters are those of the register mode on the same view
+    _assert_same(got[1:], canonical_windows(view, 21)[1:])
+
+
+GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False), (2, 1, True)]
+
+
+def _general_input(L, bps, seed):
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, 1 << bps, L).astype(np.uint8))
+    good = torch.from_numpy(rng.random(L) > 0.005)
+    return codes, good
+
+
+@pytest.mark.parametrize("bps,K,canonical", GENERAL_CASES)
+@pytest.mark.parametrize("L", [1, 30, 256, 257, 5003, (1 << 20) + 3])
+def test_general_kernel_matches_plain(cuda, bps, K, canonical, L):
+    codes, good = _general_input(L, bps, L + K)
+    before = windows_general.launches
+    got = windows_general(codes.to(cuda), good.to(cuda), K, bps, canonical)
+    torch.cuda.synchronize()
+    assert windows_general.launches == before + 1
+    _assert_same([got], [windows_general_plain(codes, good, K, bps, canonical)])
+
+
+@pytest.mark.parametrize("bps,K,canonical", GENERAL_CASES)
+@pytest.mark.parametrize("offset", [1, 7, 99999])
+def test_general_kernel_on_odd_offsets(cuda, bps, K, canonical, offset):
+    codes, good = _general_input(1 << 18, bps, offset)
+    c, g = codes.to(cuda)[offset:], good.to(cuda)[offset:]
+    got = windows_general(c, g, K, bps, canonical)
+    torch.cuda.synchronize()
+    _assert_same([got], [windows_general_plain(c.cpu(), g.cpu(), K, bps, canonical)])
+
+
+@pytest.mark.parametrize("K,s", [(21, 1000), (31, 50), (32, 200), (11, 2000)])
+def test_minhash_on_cuda_matches_cpu(cuda, K, s):
+    data = _bytes(300_000, K)
+    data[data == ord("X")] = ord("A")
+    before = canonical_hashes.launches
+    got = tmh.minhash_sketch(data, K=K, s=s, device="cuda")
+    assert canonical_hashes.launches - before == (1 if K <= 31 else 0)
+    assert np.array_equal(got, tmh.minhash_sketch(data, K=K, s=s, device="cpu"))
+
+
+def test_minhash_fallback_and_streaming_on_cuda(cuda):
+    rng = np.random.default_rng(4)
+    data = np.resize(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 300)], 200_000)
+    assert np.array_equal(
+        tmh.minhash_sketch(data, K=21, s=500, device="cuda"), tmh.minhash_sketch(data, K=21, s=500, device="cpu")
+    )
+    seq = _bytes(100_000, 5)
+    seq[seq == ord("X")] = ord("C")
+    offsets = np.array([0, 10, 40_000, 40_001, 100_000])
+    sketches = []
+    for dev in ("cuda", "cpu"):
+        sk = tmh.StreamingSketcher(K=19, s=300, chunk_size=1 << 14, device=dev)
+        sk.update(seq, offsets)
+        sketches.append(sk.finalize())
+    assert np.array_equal(*sketches)
+
+
+@pytest.mark.parametrize("K,canonical", [(31, False), (15, True), (32, True), (32, False)])
+def test_extract_on_cuda_matches_cpu(cuda, K, canonical):
+    data = _bytes(500_000, K)
+    data[data == ord("X")] = ord("G")
+    before = windows_general.launches
+    got = tex.extract_kmers(data, K=K, canonical=canonical, device="cuda")
+    assert windows_general.launches - before == (1 if K <= 31 else 0)
+    want = tex.extract_kmers(data, K=K, canonical=canonical, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    got = tex.minimizer_select(data, K=K, W=10, canonical=canonical, skip_ambiguous=True, device="cuda")
+    want = tex.minimizer_select(data, K=K, W=10, canonical=canonical, skip_ambiguous=True, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_spaced_syncmers_and_composition_on_cuda_match_cpu(cuda):
+    rng = np.random.default_rng(6)
+    clean = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, 200_000)]
+    for fn, args in [
+        (tex.spaced_kmers, (clean, 21, 7, True)),
+        (tex.syncmer_select, (clean, 15, 5, True)),
+        (tex.minimizer_select, (clean, 15, 10, True, False)),
+        (composition_vector, (clean, 6, False)),
+        (composition_vector, (clean, 6, True)),
+    ]:
+        got, want = fn(*args, device="cuda"), fn(*args, device="cpu")
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), fn.__name__

@@ -1,8 +1,9 @@
 """The port never imports jax, nor anything of the JAX package
 ``kmers_tpu``: a fresh interpreter imports ``kmers_tpu_torch``, runs the
-main path (K = 7 and K = 40) and the CLI on the CPU, and finds neither in
-``sys.modules``; and no source of the port or of ``chip_smoke.py`` has
-such an import."""
+counting path (K = 7 and K = 40), minhash sketching, extraction,
+minimizers and the CLI's ``count`` and ``sketch`` on the CPU, and finds
+neither in ``sys.modules``; and no source of the port or of
+``chip_smoke.py`` has such an import."""
 
 import json
 import os
@@ -31,10 +32,17 @@ kmers, counts = kmers_tpu_torch.canonical_count_bytes(
 kmers40, counts40 = kmers_tpu_torch.canonical_count_bytes(
     {DATA_40!r}, kmers_tpu_torch.CountConfig(K=40, chunk_size=64), device="cpu",
 )
+sketch = kmers_tpu_torch.minhash_sketch({DATA!r}, K=7, s=5, device="cpu")
+vals, pos = kmers_tpu_torch.extract_kmers({DATA!r}, K=7, device="cpu")
+mins, _ = kmers_tpu_torch.minimizer_select({DATA!r}, K=7, W=4, skip_ambiguous=True, device="cpu")
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--device", "cpu"])
+main(["sketch", sys.argv[1], "-k", "5", "-s", "3", "--device", "cpu"])
 print(json.dumps({{
     "total": int(counts.sum()),
     "total40": int(counts40.sum()),
+    "sketch": int(sketch.size),
+    "extracted": int(vals.size),
+    "minimizers": bool(mins.size),
     "jax": "jax" in sys.modules,
     "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu"),
 }}))
@@ -51,9 +59,12 @@ def test_port_runs_without_importing_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
-    assert len(lines) == 2  # the CLI's top line, then the script's result
+    # the CLI's top line, its sketch (a header and three hashes), then the
+    # script's result
+    assert len(lines) == 6 and lines[1] == "#kmers_tpu sketch k=5 s=3"
     assert json.loads(lines[-1]) == {
-        "total": TOTAL, "total40": 4 * 30 - 40 + 1, "jax": False, "kmers_tpu": [],
+        "total": TOTAL, "total40": 4 * 30 - 40 + 1, "sketch": 5, "extracted": TOTAL,
+        "minimizers": True, "jax": False, "kmers_tpu": [],
     }
     assert json.loads(proc.stderr.strip().splitlines()[-1])["total"] == (12 - 4) + (7 - 4)
 
