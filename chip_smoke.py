@@ -12,8 +12,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    K = 32, 33, 47, 63, each front-end on four views; K1's hash mode on the
    same four views at K = 1, 21, 31 and on the whole chromosome; K6 at its
    five (bps, K, canonical) cases on 2^20 symbols at an odd offset and on
-   the whole chromosome), with kernel, plain and (for K2) library times
-   (CUDA events, median of 20);
+   the whole chromosome; K4 at K = 1, 5, 7 and K5 at K = 8, 15, 32 on four
+   views with the strands clipped differently), with kernel, plain and
+   (for K2) library times (CUDA events, median of 20);
 4. slice K = 31: canonical counting of a synthetic 48,129,895-base
    chromosome (the length of GRCh37 chr21) on the card, exactly equal to
    an independent numpy reference, its first 100 kb equal to a
@@ -32,7 +33,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
    (K6), each equal to a numpy reference; ``sketch_fastx_stream`` over a
    40-record FASTA equal to the one-shot sketch; the CLI's ``sketch`` and
    ``dist`` on two FASTAs of 2 Mb against numpy sketches; K = 32 minhash
-   and extraction (plain torch) on 300 kb against numpy.
+   and extraction (plain torch) on 300 kb against numpy;
+7. six-frame: ``sixframe_aa_count`` at K = 7 on the same chromosome (K4,
+   then sort and K2), exactly equal to an independent numpy reference that
+   translates each strand's three frames, its first 100 kb equal to a
+   string-level Counter, with launch counts, wall time, amino-acid windows
+   per second and a ``torch.profiler`` breakdown; K = 15 on the first 8 Mb
+   (K5, the word path) and K = 8 and 32 on 1 Mb, each equal to numpy; the
+   CLI's ``sixframe`` on a 3-record FASTA equal to a string counter.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON, and the one before that the card's name and
@@ -65,6 +73,12 @@ K_SKETCH = 21  # Mash's default k and s
 S_SKETCH = 1000
 #: K6's cases: (bps, K, canonical)
 GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False)]
+K_AA = 7  # six-frame counting: K4's widest K, the JAX package's default
+K_AA_MW = 15
+#: NCBI transl_table 1 (amino acids of TTT, TTC, TTA, ... in T, C, A, G
+#: order) and the amino-acid alphabet whose index is an amino acid's code
+NCBI_STANDARD = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+AA_CHARS = "ARNDCQEGHILKMFPSTWYVOUBJZX*-"
 #: H100 SXM device memory rate (NVIDIA data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 WORD_BITS = 62
@@ -225,6 +239,87 @@ def string_counter(text: str, k: int) -> dict:
     return dict(out)
 
 
+def codon_table_from_ncbi(ncbi: str) -> np.ndarray:
+    """The 64-entry codon -> amino-acid table of an NCBI string, indexed
+    by ``(a << 4) | (b << 2) | c`` of the 2-bit codes (A=0, C=1, G=2, T=3)."""
+    tcag = {"T": 3, "C": 1, "A": 0, "G": 2}
+    tbl = np.zeros(64, np.uint8)
+    for i, ch in enumerate(ncbi):
+        a, b, c = "TCAG"[i >> 4], "TCAG"[(i >> 2) & 3], "TCAG"[i & 3]
+        tbl[(tcag[a] << 4) | (tcag[b] << 2) | tcag[c]] = AA_CHARS.index(ch)
+    return tbl
+
+
+def numpy_sixframe(seq: np.ndarray, k: int, tbl: np.ndarray):
+    """Sorted distinct six-frame amino-acid k-mers and counts, with numpy
+    alone, as ``(limbs, counts)``: ``limbs`` is ``(ceil(k / 8), n)`` uint64,
+    limb 0 the lowest 64 bits of the 8k-bit register (the earliest codon
+    highest).  Each strand's three frames are translated directly: the
+    forward stream, and the complemented reversed stream (the opposite
+    strand read 5' to 3'); a window counts where its 3k bases are all
+    certain.  Distinct values come from a sort and a neighbour test."""
+    up = seq & 0xDF
+    good = np.isin(up, np.frombuffer(b"ACGTU", np.uint8))
+    codes = (((seq >> 1) ^ (seq >> 2)) & 3).astype(np.uint8)
+    n_limbs = -(-k // 8)
+    parts = [[] for _ in range(n_limbs)]
+    for c, g in ((codes, good), ((3 - codes)[::-1], good[::-1])):
+        for f in range(3):
+            n_c = (c.size - f) // 3
+            cod = c[f : f + 3 * n_c].reshape(n_c, 3).astype(np.int64)
+            aa = tbl[(cod[:, 0] << 4) | (cod[:, 1] << 2) | cod[:, 2]].astype(np.uint64)
+            ok = g[f : f + 3 * n_c].reshape(n_c, 3).all(1)
+            m = n_c - k + 1
+            if m <= 0:
+                continue
+            bad = np.concatenate([[0], np.cumsum(~ok, dtype=np.int64)])
+            valid = (bad[k:] - bad[:m]) == 0
+            limbs = [np.zeros(m, np.uint64) for _ in range(n_limbs)]
+            for i in range(k):
+                j = k - 1 - i  # byte of the register (the earliest codon highest)
+                np.bitwise_or(limbs[j // 8], aa[i : i + m] << np.uint64(8 * (j % 8)), out=limbs[j // 8])
+            for part, limb in zip(parts, limbs):
+                part.append(limb[valid])
+    limbs = np.stack([np.concatenate(p) for p in parts])
+    if n_limbs == 1:
+        limbs = np.sort(limbs, axis=1)
+    else:
+        limbs = limbs[:, np.lexsort(limbs)]
+    m = limbs.shape[1]
+    first = np.ones(m, bool)
+    first[1:] = (limbs[:, 1:] != limbs[:, :-1]).any(0)
+    starts = np.flatnonzero(first)
+    return limbs[:, starts], np.diff(np.append(starts, m)).astype(np.int64)
+
+
+def join_limbs(limbs: np.ndarray) -> np.ndarray:
+    """``(n_limbs, n)`` uint64 limbs, limb 0 lowest -> Python ints."""
+    out = limbs[-1].astype(object)
+    for limb in limbs[-2::-1]:
+        out = (out << 64) | limb.astype(object)
+    return out
+
+
+def string_sixframe_counter(text: str, k: int) -> dict:
+    """{register: count} of the six-frame amino-acid k-mers, from Python
+    strings alone: each strand's three frames translated with the NCBI
+    string, windows of k codons whose bases are all certain."""
+    aa_of = {}
+    for i, ch in enumerate(NCBI_STANDARD):
+        aa_of["TCAG"[i >> 4] + "TCAG"[(i >> 2) & 3] + "TCAG"[i & 3]] = AA_CHARS.index(ch)
+    text = text.upper().replace("U", "T")
+    rc = text.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+    out = collections.Counter()
+    for strand in (text, rc):
+        for f in range(3):
+            aas = [aa_of.get(strand[i : i + 3]) for i in range(f, len(strand) - 2, 3)]
+            for i in range(len(aas) - k + 1):
+                w = aas[i : i + k]
+                if None not in w:
+                    out[sum(a << (8 * (k - 1 - j)) for j, a in enumerate(w))] += 1
+    return dict(out)
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -310,7 +405,9 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
     categories = collections.Counter()
     for name, (_, secs) in per_name.items():
         low = name.lower()
-        if "canonical_windows_mw_kernel" in name:
+        if "sixframe_kernel" in name:
+            cat = "K4/K5 sixframe_windows / sixframe_words"
+        elif "canonical_windows_mw_kernel" in name:
             cat = "K3 canonical_words"
         elif "canonical_windows_kernel" in name:
             cat = "K1 canonical_windows / canonical_hashes"
@@ -335,13 +432,14 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
 
 
 @contextlib.contextmanager
-def stage_timers(module, names):
-    """Wrap ``module.<name>`` for each name with synchronising timers;
-    yields {name: seconds} and restores the module on exit."""
+def stage_timers(targets):
+    """Wrap ``module.<name>`` for each ``(module, name)`` of ``targets``
+    with synchronising timers; yields {name: seconds} and restores the
+    modules on exit."""
     import torch
 
     secs = collections.Counter()
-    saved = {name: getattr(module, name) for name in names}
+    saved = {(module, name): getattr(module, name) for module, name in targets}
 
     def timed(name, fn):
         def run(*args, **kwargs):
@@ -354,11 +452,11 @@ def stage_timers(module, names):
         return run
 
     try:
-        for name, fn in saved.items():
+        for (module, name), fn in saved.items():
             setattr(module, name, timed(name, fn))
         yield secs
     finally:
-        for name, fn in saved.items():
+        for (module, name), fn in saved.items():
             setattr(module, name, fn)
 
 
@@ -410,6 +508,12 @@ def phase_kernels(chrom: np.ndarray):
     from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
     from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
+    from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
+        sixframe_windows,
+        sixframe_windows_plain,
+        sixframe_words,
+        sixframe_words_plain,
+    )
     from kmers_tpu_torch.ops.kernels.window_kernel import (
         canonical_hashes,
         canonical_hashes_plain,
@@ -523,6 +627,33 @@ def phase_kernels(chrom: np.ndarray):
     k3_plain_ms = median_ms(lambda: canonical_words_plain(clean_mw, K_MW))
     log(f"[kernels] K3 at 2^19 bytes, K=47: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
 
+    # K4 and K5: the strands clipped differently, as the JAX kernel's
+    # callers clip them (fw [H, H + b), rv [1, b + 1))
+    sixframe_err = {"sixframe_windows": 0.0, "sixframe_words": 0.0}
+    for k in (1, 5, 7, 8, 15, 32):
+        kernel, plain = ((sixframe_windows, sixframe_windows_plain) if k <= 7
+                         else (sixframe_words, sixframe_words_plain))
+        for name, view in _views(buf, CHUNK, 20):
+            H = 3 * k
+            b = view.shape[0] - 2 * H - 5
+            bounds = (H, H + b, 1, b + 1)
+            got = kernel(view, k, bounds)
+            want = plain(view, k, bounds)
+            torch.cuda.synchronize()
+            require(all(torch_equal(g, w) for g, w in zip(got, want)),
+                    f"{kernel.__name__} != plain at K={k}, {name}")
+            require(int(got[1]) > view.shape[0], f"{kernel.__name__} valid windows at K={k}, {name}")
+            sixframe_err[kernel.__name__] = max(sixframe_err[kernel.__name__], max_abs_err(got, want))
+        log(f"[kernels] {'K4' if k <= 7 else 'K5'} {kernel.__name__} K={k}: bit-equal to plain on "
+            f"4 views (n_valid={int(got[1])})")
+    every = (0, CHUNK, 0, CHUNK)
+    k4_ms = median_ms(lambda: sixframe_windows(clean, K_AA, every))
+    k4_plain_ms = median_ms(lambda: sixframe_windows_plain(clean, K_AA, every))
+    k5_ms = median_ms(lambda: sixframe_words(clean, K_AA_MW, every))
+    k5_plain_ms = median_ms(lambda: sixframe_words_plain(clean, K_AA_MW, every))
+    log(f"[kernels] K4 at 2^20 bytes, K={K_AA}: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms; "
+        f"K5 at K={K_AA_MW}: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms")
+
     # K2 inputs
     n = CHUNK
     long_run = torch.cat([torch.full((n // 2,), 12345), torch.arange(n // 2) + 20000])
@@ -555,6 +686,7 @@ def phase_kernels(chrom: np.ndarray):
         f"torch.unique_consecutive {k2_lib_ms:.4f} ms")
 
     W = n_words(K_MW)
+    W_AA = n_words(K_AA_MW, 8)
     return {
         "canonical_windows": dict(
             route="cuda", source="kmers_tpu_torch/csrc/window_kernel.cu",
@@ -590,6 +722,20 @@ def phase_kernels(chrom: np.ndarray):
             max_abs_err=gen_err, ms=gen_ms, plain_ms=gen_plain_ms,
             # a uint8 code and a bool flag in, one 8-byte register out per position
             bound_ms=bound_ms(chrom.size * (1 + 1 + 8)), bound_by="bytes", library_ms=None,
+        ),
+        "sixframe_windows": dict(
+            route="cuda", source="kmers_tpu_torch/csrc/sixframe_kernel.cu",
+            replaces="kmers_tpu/ops/pallas/sixframe_kernel.py:229",
+            max_abs_err=sixframe_err["sixframe_windows"], ms=k4_ms, plain_ms=k4_plain_ms,
+            # one byte in, two 8-byte keys (both strands) out per anchor; the counter
+            bound_ms=bound_ms(CHUNK * (1 + 16) + 8), bound_by="bytes", library_ms=None,
+        ),
+        "sixframe_words": dict(
+            route="cuda", source="kmers_tpu_torch/csrc/sixframe_kernel.cu",
+            replaces="kmers_tpu/ops/pallas/sixframe_kernel.py:365",
+            max_abs_err=sixframe_err["sixframe_words"], ms=k5_ms, plain_ms=k5_plain_ms,
+            # one byte in, 2 W 8-byte words (both strands) out per anchor; the counter
+            bound_ms=bound_ms(CHUNK * (1 + 16 * W_AA) + 8), bound_by="bytes", library_ms=None,
         ),
     }
 
@@ -674,6 +820,7 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
 
     tcc = importlib.import_module("kmers_tpu_torch.pipelines.canonical_count")
+    stream = importlib.import_module("kmers_tpu_torch.pipelines._stream")
     cfg = CountConfig(K=K_MW)
     L = chrom.size
     n_chunks = len(range(0, L - K_MW + 1, cfg.resolved_chunk_size - (K_MW - 1)))
@@ -702,7 +849,9 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
     stages = ["canonical_words", "sort_count_mw", "compact_counts", "merge_compact_tables_mw",
               "words_to_ints"]
     t0 = time.perf_counter()
-    with stage_timers(tcc, stages) as secs:
+    # the chunk loop's compaction lives in the shared _stream module
+    targets = [(stream if name == "compact_counts" else tcc, name) for name in stages]
+    with stage_timers(targets) as secs:
         canonical_count_bytes(chrom, cfg, device="cuda")
     staged = time.perf_counter() - t0
     rest = staged - sum(secs.values())
@@ -924,6 +1073,96 @@ def phase_sketch_extract(chrom: np.ndarray, smi: str):
     return launches
 
 
+def phase_sixframe(chrom: np.ndarray, smi: str):
+    """Six-frame amino-acid counting: K = 7 on the whole chromosome (K4,
+    sort, K2), K = 15 on 8 Mb (K5, the word path), K = 8 and 32 on 1 Mb,
+    each against the numpy reference; the CLI.  Returns the launch counts
+    of the K = 7 and K = 15 runs, summed."""
+    import torch
+
+    from kmers_tpu_torch import SixFrameCountConfig, sixframe_aa_count
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
+    from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows, sixframe_words
+
+    tbl = codon_table_from_ncbi(NCBI_STANDARD)
+    L = chrom.size
+    launches = collections.Counter()
+    cfg = SixFrameCountConfig(K=K_AA)
+    n_chunks = len(range(0, L - 3 * K_AA + 1, cfg.chunk_size - (3 * K_AA - 1)))
+    sixframe_aa_count(chrom[: 3 * CHUNK], cfg, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    sixframe_windows.launches = 0
+    rle_unit.launches = 0
+    t0 = time.perf_counter()
+    kmers, counts = sixframe_aa_count(chrom, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    run = {"sixframe_windows": sixframe_windows.launches, "rle_unit": rle_unit.launches}
+    launches.update(run)
+    peak = torch.cuda.max_memory_allocated()
+    total = int(counts.sum())
+    log(f"[sixframe K={K_AA}] {L} bases, {n_chunks} chunks of 2^20: {wall:.3f} s wall, "
+        f"{total / wall:.0f} amino-acid windows/s, {L / wall:.0f} bases/s, {kmers.size} distinct, "
+        f"{total} counted, peak device memory {peak} bytes ({smi})")
+    log(f"[sixframe K={K_AA}] launches during the run: {run}")
+    for name, count in run.items():
+        require(count >= n_chunks, f"{name} launched {count} times for {n_chunks} chunks")
+    require(kmers.dtype == np.uint64 and counts.dtype == np.int64, "six-frame output dtypes")
+    _log_profile(f"sixframe K={K_AA}", lambda: sixframe_aa_count(chrom, cfg, device="cuda"), smi, reps=1)
+
+    t0 = time.perf_counter()
+    ref_l, ref_c = numpy_sixframe(chrom, K_AA, tbl)
+    log(f"[sixframe K={K_AA}] numpy reference in {time.perf_counter() - t0:.1f} s: {ref_c.size} distinct")
+    require(np.array_equal(kmers, ref_l[0]) and np.array_equal(counts, ref_c),
+            "six-frame counts differ from the numpy reference")
+    log(f"[sixframe K={K_AA}] equal to the numpy reference")
+    del ref_l, ref_c, kmers, counts
+
+    head = chrom[:100_000]
+    got = sixframe_aa_count(head, cfg, device="cuda")
+    want = string_sixframe_counter(head.tobytes().decode(), K_AA)
+    require(dict(zip(got[0].tolist(), got[1].tolist())) == want,
+            "six-frame: first 100 kb differ from the string Counter")
+    log(f"[sixframe K={K_AA}] first 100 kb equal to the string-level Counter ({len(want)} distinct)")
+
+    # the word path: K5, sort_count_mw, merges of word tables, Python ints
+    for k, part in [(K_AA_MW, chrom[: 8 * CHUNK]), (8, chrom[L // 3 - CHUNK // 2 : L // 3 + CHUNK // 2]),
+                    (32, chrom[5 * CHUNK : 6 * CHUNK])]:
+        sixframe_words.launches = 0
+        rle_unit.launches = 0
+        t0 = time.perf_counter()
+        got = sixframe_aa_count(part, SixFrameCountConfig(K=k), device="cuda")
+        wall = time.perf_counter() - t0
+        run = {"sixframe_words": sixframe_words.launches, "rle_unit": rle_unit.launches}
+        chunks = len(range(0, part.size - 3 * k + 1, cfg.chunk_size - (3 * k - 1)))
+        require(all(c >= chunks for c in run.values()), f"K={k} launches {run} for {chunks} chunks")
+        if k == K_AA_MW:
+            launches.update(run)
+            _log_profile(f"sixframe K={k}", lambda: sixframe_aa_count(part, SixFrameCountConfig(K=k),
+                                                                      device="cuda"), smi, reps=1)
+        ref_l, ref_c = numpy_sixframe(part, k, tbl)
+        require(got[0].dtype == object and np.array_equal(got[1], ref_c)
+                and got[0].tolist() == join_limbs(ref_l).tolist(),
+                f"six-frame K={k} differs from the numpy reference")
+        log(f"[sixframe K={k}] {part.size} bases in {wall:.3f} s ({int(got[1].sum()) / wall:.0f} "
+            f"amino-acid windows/s), launches {run}: equal to the numpy reference "
+            f"({ref_c.size} distinct, max count {int(ref_c.max())})")
+
+    records = [chrom[200_000:220_000], chrom[500_000:501_000], chrom[L // 2 - 10_000 : L // 2 + 10_000]]
+    want = collections.Counter()
+    for r in records:
+        want.update(string_sixframe_counter(r.tobytes().decode(), K_AA))
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = Path(tmp) / "reads.fa"
+        _fasta(fa, records)
+        totals = json.loads(_cli("sixframe", str(fa), "-k", str(K_AA)))
+    require(totals == {"distinct": len(want), "total": sum(want.values())},
+            f"CLI sixframe totals {totals}")
+    log(f"[sixframe K={K_AA}] CLI on a 3-record FASTA: {totals}, equal to the string counter")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -942,12 +1181,16 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_sketch = phase_sketch_extract(chrom, smi)
     log(f"[sketch] minhash + extract phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_sixframe = phase_sixframe(chrom, smi)
+    log(f"[sixframe] six-frame phase in {time.perf_counter() - t0:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules if m.split(".")[0] == "kmers_tpu"],
             "the JAX package was imported")
 
     # launches: each kernel's count over the paths that run it
-    launches = collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
+    launches = (collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
+                + launches_sixframe)
     kernels = [
         {"name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
          "launches": launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],

@@ -12,14 +12,19 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
   convention (FxHash with the sign bit flipped, so signed order is unsigned
   hash order) and conversion of JAX state.
 - ``ops``: classification, window registers (2, 4 and 8 bits a symbol),
-  FxHash, minimizers and syncmers, sort-based counting of one- and
+  FxHash, minimizers and syncmers, translation and reverse translation,
+  six-frame amino-acid windows, sort-based counting of one- and
   multi-word registers, and the hand-written CUDA kernels in
   ``ops.kernels`` (sources in ``csrc/``).
 - ``pipelines``: canonical k-mer counting for 1 <= K <= 100 and
   composition vectors; MinHash sketching (``minhash_sketch``,
   ``StreamingSketcher``, ``sketch_fastx_stream``, ``jaccard``); k-mer
   extraction (``extract_kmers``, ``spaced_kmers``, ``minimizer_select``,
-  ``syncmer_select``).
+  ``syncmer_select``); six-frame amino-acid k-mer counting
+  (``sixframe_aa_count``, ``SixFrameCountConfig``).
+- ``genetic_codes``, ``revtrans``: the NCBI genetic codes and their
+  codon-set masks, for translation (``ops.translate_ops``) and reverse
+  translation (``ops.revtrans_ops``).
 - ``symbols``, ``kmer``, ``io``: ``EncodeError``, a 2-bit DNA ``Kmer``,
   and a pure-Python FASTA/FASTQ reader and batch streamer.
 - ``utils``: checked mode, metrics, the level stack and the drain queue.
@@ -29,6 +34,7 @@ Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on
 """
 
 from .convert import SENTINEL
+from .genetic_codes import GeneticCode, ncbi_trans_table, standard_genetic_code
 from .pipelines import (
     CountConfig,
     StreamingSketcher,
@@ -42,6 +48,8 @@ from .pipelines import (
     jaccard,
     minhash_sketch,
     minimizer_select,
+    SixFrameCountConfig,
+    sixframe_aa_count,
     sketch_fastx_stream,
     spaced_kmers,
     syncmer_select,
@@ -64,4 +72,9 @@ __all__ = [
     "spaced_kmers",
     "minimizer_select",
     "syncmer_select",
+    "SixFrameCountConfig",
+    "sixframe_aa_count",
+    "GeneticCode",
+    "standard_genetic_code",
+    "ncbi_trans_table",
 ]

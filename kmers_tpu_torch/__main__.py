@@ -2,7 +2,8 @@
 
 The port's counterpart of ``python -m kmers_tpu`` for the commands
 ``count`` (without ``-o`` and ``--stream``, which are not ported yet),
-``sketch`` and ``dist``: the same lines on stdout and stderr.  Every
+``sketch``, ``dist`` and ``sixframe`` (on one device): the same lines on
+stdout and stderr.  Every
 command takes ``--device`` (``cuda``, the default, or ``cpu``).
 """
 
@@ -109,6 +110,18 @@ def cmd_dist(args):
     print(json.dumps({"jaccard": round(j, 6), "mash_distance": round(d, 6)}))
 
 
+def cmd_sixframe(args):
+    from .io import read_fastx
+    from .pipelines import SixFrameCountConfig, join_records_with_n, sixframe_aa_count
+
+    seq, off = read_fastx(args.input)
+    kmers, counts = sixframe_aa_count(
+        join_records_with_n(seq, off).tobytes(), SixFrameCountConfig(K=args.k),
+        device=args.device,
+    )
+    print(json.dumps({"distinct": int(kmers.size), "total": int(counts.sum())}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="kmers_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -147,6 +160,12 @@ def main(argv=None):
     d.add_argument("-s", "--size", type=int, default=1000)
     d.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     d.set_defaults(fn=cmd_dist)
+
+    f = sub.add_parser("sixframe", help="six-frame amino-acid K-mer counting (1 <= K <= 32)")
+    f.add_argument("input")
+    f.add_argument("-k", type=int, default=7)
+    f.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    f.set_defaults(fn=cmd_sixframe)
 
     args = p.parse_args(argv)
     args.fn(args)

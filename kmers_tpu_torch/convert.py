@@ -1,20 +1,31 @@
 """The port's register convention, and conversion of state to and from
 the JAX package.
 
-- A K-mer register is ``W = n_words(K) = ceil(K / 31)`` ``int64`` words of
-  at most 62 bits (31 bases) each.  Word 0 is the most significant and
-  holds the first ``K - 31 (W - 1)`` bases; the last word holds the last
-  31 bases.  Real words are never negative, so signed lexicographic order
-  over the words equals the order of the registers (and the JAX package's
-  unsigned limb order).  A K <= 31 register is the ``W = 1`` case: one
-  ``int64`` per window, kept as a 1-D tensor.  torch has no ``>>`` or
-  ``<`` for ``uint32`` on the CPU, so the JAX package's ``uint32`` limbs
-  (``kmers_tpu/ops/u64.py``, ``ops/multiword.py``) are not carried over.
+- A register of K symbols of ``bps`` bits is a ``bps * K``-bit string
+  cut big-endian into ``W = n_words(K, bps) = ceil(bps * K / 62)``
+  ``int64`` words of 62 bits; word 0, the most significant, keeps what is
+  left over (fewer bits).  Real words are never negative, so signed
+  lexicographic order over the words equals the order of the registers
+  (and the JAX package's unsigned limb order).  A register of at most 62
+  bits is the ``W = 1`` case: one ``int64`` per window, kept as a 1-D
+  tensor.  torch has no ``>>`` or ``<`` for ``uint32`` on the CPU, so the
+  JAX package's ``uint32`` limbs (``kmers_tpu/ops/u64.py``,
+  ``ops/multiword.py``) are not carried over.
+- Nucleotide k-mers have ``bps = 2``: a word holds 31 bases, word 0 the
+  first ``K - 31 (W - 1)``.  Amino-acid k-mers (six-frame counting,
+  K <= 32) have ``bps = 8``: K <= 7 is one int64 key of at most 56 bits,
+  8 <= K <= 32 takes W = 2..5 words.  62 is not a multiple of 8, so at
+  every K >= 8 some amino-acid byte straddles two words.
 - An invalid window holds :data:`SENTINEL` (``INT64_MAX``) in every word.
   No real word reaches it, so it sorts after every real register and
-  collides with none at any K (the JAX package needs an explicit flag
-  operand where ``2K`` fills its limbs, K = 32, 48, 64, 80, 96).  The JAX
-  sentinel, all-ones limbs, would be ``-1`` as an ``int64`` and sort first.
+  collides with none at any K.  The JAX package's registers fill their
+  32-bit limbs exactly where ``bps * K`` is a multiple of 32 (K = 32, 48,
+  64, 80, 96 nucleotides; K = 4m amino acids), where its all-ones sentinel
+  equals a real register; there it carries an explicit validity operand
+  (the six-frame kernel K5 emits a validity stream for this alone).  The
+  port's 62-bit words leave the sentinel free at every width, so it needs
+  no such stream.  The JAX sentinel, all-ones limbs, would be ``-1`` as an
+  ``int64`` and sort first.
 - Counts are ``int64`` (the JAX package counts in ``int32``).
 - A count table is a pair ``(keys, counts)``: ``keys`` of shape ``(n,)``
   for K <= 31 or ``(W, n)``, ``counts`` ``int64`` of shape ``(n,)``, rows
@@ -79,9 +90,9 @@ _JAX_LIMB_SENT = 0xFFFFFFFF
 _WORD_MASK = np.uint64((1 << KEY_BITS_MAX) - 1)
 
 
-def n_words(K: int) -> int:
-    """Register words of a K-mer: ``ceil(K / 31)``."""
-    return -(-K // WORD_BASES)
+def n_words(K: int, bps: int = 2) -> int:
+    """Register words of a K-mer of ``bps``-bit symbols: ``ceil(bps K / 62)``."""
+    return -(-bps * K // KEY_BITS_MAX)
 
 
 def keys_from_jax(hi, lo, device=None) -> torch.Tensor:
@@ -157,38 +168,43 @@ def _regroup(parts, part_bits: int, out_bits: int, n_out: int) -> list:
     return out
 
 
-def words_from_jax(limbs, K: int, device=None) -> torch.Tensor:
-    """JAX ``M = ceil(2K / 32)`` uint32 limbs (limb 0 most significant) ->
-    the port's ``(W, n)`` int64 words.
+def words_from_jax(limbs, K: int, device=None, bps: int = 2, valid=None) -> torch.Tensor:
+    """JAX ``M = ceil(bps K / 32)`` uint32 limbs (limb 0 most significant)
+    -> the port's ``(W, n)`` int64 words.
 
-    All-ones limbs, the JAX sentinel, become :data:`SENTINEL` in every
-    word (at ``2K = 32 M`` all-ones is also the forward register of K
-    ``T``'s, which is never canonical); any other register wider than
-    ``2K`` bits raises ``ValueError``.
+    Invalid windows become :data:`SENTINEL` in every word: those where
+    ``valid`` (the JAX validity stream, nonzero = real) is zero, or, with
+    no ``valid``, those whose limbs are all ones, the JAX sentinel (for
+    nucleotides at ``2K = 32 M`` all-ones is also the forward register of
+    K ``T``'s, which is never canonical).  Any other register wider than
+    ``bps K`` bits raises ``ValueError``.
     """
     limbs = [np.asarray(x, np.uint32) for x in limbs]
-    M = -(-2 * K // 32)
+    M = -(-bps * K // 32)
     if len(limbs) != M:
-        raise ValueError(f"K={K} takes {M} limbs, got {len(limbs)}")
-    sent = np.logical_and.reduce([x == _JAX_LIMB_SENT for x in limbs])
-    top_bits = 2 * K - 32 * (M - 1)
+        raise ValueError(f"K={K} at {bps} bits takes {M} limbs, got {len(limbs)}")
+    if valid is None:
+        sent = np.logical_and.reduce([x == _JAX_LIMB_SENT for x in limbs])
+    else:
+        sent = np.asarray(valid) == 0
+    top_bits = bps * K - 32 * (M - 1)
     if top_bits < 32 and (limbs[0][~sent] >> np.uint32(top_bits)).any():
-        raise ValueError(f"register wider than {2 * K} bits")
-    W = n_words(K)
-    words = _regroup([x.astype(np.uint64) for x in limbs], 32, KEY_BITS_MAX, W)
+        raise ValueError(f"register wider than {bps * K} bits")
+    words = _regroup([x.astype(np.uint64) for x in limbs], 32, KEY_BITS_MAX, n_words(K, bps))
     out = np.stack(words).astype(np.int64)
     out[:, sent] = SENTINEL
     return torch.from_numpy(out).to(device)
 
 
-def words_to_jax(words: torch.Tensor, K: int):
+def words_to_jax(words: torch.Tensor, K: int, bps: int = 2):
     """The port's ``(W, n)`` words -> a tuple of JAX uint32 limb arrays,
     :data:`SENTINEL` rows back to all-ones."""
     w = words.detach().cpu().numpy().astype(np.int64)
-    if w.shape[0] != n_words(K):
-        raise ValueError(f"K={K} takes {n_words(K)} words, got {w.shape[0]}")
+    W = n_words(K, bps)
+    if w.shape[0] != W:
+        raise ValueError(f"K={K} at {bps} bits takes {W} words, got {w.shape[0]}")
     sent = w[0] == SENTINEL
-    M = -(-2 * K // 32)
+    M = -(-bps * K // 32)
     limbs = _regroup([x.astype(np.uint64) for x in w], KEY_BITS_MAX, 32, M)
     return tuple(
         np.where(sent, np.uint32(_JAX_LIMB_SENT), x.astype(np.uint32)) for x in limbs

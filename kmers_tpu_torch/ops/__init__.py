@@ -1,6 +1,7 @@
 """The port's compute plane: classification, window registers, hashing,
-minimizers, counting of one- and multi-word registers, and the CUDA
-kernels (``ops.kernels``)."""
+minimizers, translation and reverse translation, six-frame amino-acid
+windows, counting of one- and multi-word registers, and the CUDA kernels
+(``ops.kernels``)."""
 
 from .count import (
     SENTINEL,
@@ -18,6 +19,9 @@ from .multiword import (
     merge_compact_tables_mw,
     sort_count_mw,
 )
+from .revtrans_ops import codon_set_table, reverse_translate_codes
+from .sixframe import sixframe_windows_from_bytes, sixframe_words_from_bytes
+from .translate_ops import aa_kmer_windows, six_frame_aa_kmers, six_frame_codes, translate_codes
 from .windows import (
     canonical_windows_4bit_from_codes,
     canonical_windows_from_codes,
@@ -47,4 +51,12 @@ __all__ = [
     "canonical_windows_mw_bytes",
     "sort_count_mw",
     "merge_compact_tables_mw",
+    "translate_codes",
+    "six_frame_codes",
+    "aa_kmer_windows",
+    "six_frame_aa_kmers",
+    "codon_set_table",
+    "reverse_translate_codes",
+    "sixframe_windows_from_bytes",
+    "sixframe_words_from_bytes",
 ]

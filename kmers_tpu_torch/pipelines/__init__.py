@@ -1,6 +1,7 @@
 """End-to-end workloads of the port: canonical k-mer counting
-(1 <= K <= 100) and composition vectors, MinHash sketching, and k-mer
-extraction (every k-mer, spaced, minimizers, closed syncmers)."""
+(1 <= K <= 100) and composition vectors, MinHash sketching, k-mer
+extraction (every k-mer, spaced, minimizers, closed syncmers), and
+six-frame amino-acid k-mer counting (1 <= K <= 32)."""
 
 from .canonical_count import (
     CountConfig,
@@ -14,6 +15,7 @@ from .canonical_count import (
 )
 from .extract import extract_kmers, minimizer_select, spaced_kmers, syncmer_select
 from .minhash import StreamingSketcher, jaccard, minhash_sketch, sketch_fastx_stream
+from .sixframe import SixFrameCountConfig, sixframe_aa_count
 
 __all__ = [
     "CountConfig",
@@ -32,4 +34,6 @@ __all__ = [
     "spaced_kmers",
     "minimizer_select",
     "syncmer_select",
+    "SixFrameCountConfig",
+    "sixframe_aa_count",
 ]

@@ -28,16 +28,15 @@ import torch
 
 from ..convert import SENTINEL, words_to_ints
 from ..kmer import Kmer
-from ..ops.count import compact_counts, merge_compact_tables, sort_count
+from ..ops.count import merge_compact_tables, sort_count
 from ..ops.kernels.multiword_kernel import K_MAX as K3_MAX
 from ..ops.kernels.multiword_kernel import canonical_words
 from ..ops.kernels.window_kernel import canonical_windows
 from ..ops.multiword import canonical_windows_mw_bytes, merge_compact_tables_mw, sort_count_mw
 from ..symbols import EncodeError
 from ..utils.debug import checked_mode
-from ..utils.levelstack import LevelStack
-from ..utils.streamq import DrainQueue
 from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device
+from ._stream import count_stream
 from .extract import extract_kmers
 
 __all__ = [
@@ -101,46 +100,6 @@ def _count_chunk_mw(chunk: torch.Tensor, K: int):
     return (uniq, counts), torch.stack([n_unique, n_invalid, n_ambig])
 
 
-def _count_stream(buf: torch.Tensor, K: int, chunk_size: int, count_chunk, merge):
-    """Count the overlapping chunks of ``buf`` and fold their tables.
-
-    ``count_chunk(view)`` gives ``((keys, counts), scalars)`` with
-    ``scalars[0]`` the distinct count; ``merge(ka, ca, kb, cb)`` gives a
-    front-packed ``(keys, counts, n_unique)``.  Keys are ``(n,)`` or
-    ``(W, n)``.  Returns ``(table, tallies)``: the table (interspersed
-    when there was one chunk) and the sums of ``scalars[1:]`` as ints.
-    """
-    # consecutive chunks share K-1 bases, so no window is lost at a boundary;
-    # each chunk sentinels its own last K-1 windows, so none is counted twice
-    starts = range(0, max(buf.shape[0] - K + 1, 1), chunk_size - (K - 1))
-    if len(starts) == 1:
-        # one chunk: no compaction, no merge; the final mask drops padding
-        table, scalars = count_chunk(buf)
-        return table, scalars.tolist()[1:]
-
-    tallies = None
-
-    def _slice(out):
-        keys, counts, n_unique = out
-        nu = int(n_unique)  # the merge's one host round trip
-        return keys[..., :nu], counts[:nu]
-
-    stack = LevelStack(lambda a, b: merge(*a, *b), _slice)
-
-    def _drain(out, values):
-        nonlocal tallies
-        nu, rest = values[0], values[1:]
-        tallies = rest if tallies is None else [t + v for t, v in zip(tallies, rest)]
-        keys, counts = compact_counts(*out)
-        stack.push((keys[..., :nu], counts[:nu]))
-
-    queue = DrainQueue(_drain)
-    for start in starts:
-        queue.push(*count_chunk(buf[start : start + chunk_size]))
-    queue.flush()
-    return stack.fold(), tallies
-
-
 def _check_bytes(n_invalid: int, n_ambig: int, config: CountConfig) -> None:
     if n_invalid:
         raise EncodeError(ALPHABET, "<batch input>")
@@ -184,7 +143,7 @@ def canonical_count_bytes(
     buf, chunk_size = up
     dbg = checked_mode()
     track = dbg or metrics is not None
-    acc, tallies = _count_stream(
+    acc, tallies = count_stream(
         buf, K, chunk_size, lambda c: _count_chunk(c, K, track), merge_compact_tables
     )
     n_invalid, n_ambig, *tracked = tallies
@@ -222,7 +181,7 @@ def _canonical_count_multiword(data, config: CountConfig, device):
     if up is None:
         return np.zeros(0, object), np.zeros(0, np.int64)
     buf, chunk_size = up
-    acc, (n_invalid, n_ambig) = _count_stream(
+    acc, (n_invalid, n_ambig) = count_stream(
         buf, K, chunk_size, lambda c: _count_chunk_mw(c, K), merge_compact_tables_mw
     )
     _check_bytes(n_invalid, n_ambig, config)

@@ -30,7 +30,10 @@ def test_library_name_tracks_sources_and_flags(monkeypatch, tmp_path):
 
 def test_sources_are_the_kernels():
     names = {p.name for p in _build._sources()}
-    assert {"window_kernel.cu", "rle_kernel.cu", "multiword_kernel.cu"} <= names
+    assert {
+        "window_kernel.cu", "rle_kernel.cu", "multiword_kernel.cu", "general_kernel.cu",
+        "sixframe_kernel.cu",
+    } <= names
 
 
 # stands in for nvcc: logs its arguments, writes its -o file, and fails on

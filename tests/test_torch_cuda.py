@@ -12,12 +12,19 @@ from kmers_tpu_torch.convert import SENTINEL
 from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
 from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
+from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
+    sixframe_windows,
+    sixframe_windows_plain,
+    sixframe_words,
+    sixframe_words_plain,
+)
 from kmers_tpu_torch.ops.kernels.window_kernel import (
     canonical_hashes,
     canonical_hashes_plain,
     canonical_windows,
     canonical_windows_plain,
 )
+from kmers_tpu_torch.genetic_codes import ncbi_trans_table
 from kmers_tpu_torch.pipelines import extract as tex
 from kmers_tpu_torch.pipelines import minhash as tmh
 from kmers_tpu_torch.pipelines.canonical_count import (
@@ -25,6 +32,7 @@ from kmers_tpu_torch.pipelines.canonical_count import (
     canonical_count_bytes,
     composition_vector,
 )
+from kmers_tpu_torch.pipelines.sixframe import SixFrameCountConfig, sixframe_aa_count
 
 pytestmark = pytest.mark.cuda
 
@@ -277,3 +285,63 @@ def test_spaced_syncmers_and_composition_on_cuda_match_cpu(cuda):
         got, want = fn(*args, device="cuda"), fn(*args, device="cpu")
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(np.array_equal(g, w) for g, w in zip(got, want)), fn.__name__
+
+
+SIXFRAME_KS = [1, 5, 7, 8, 15, 32]
+
+
+def _aa_bytes(L, seed):
+    """Certain bases in either case with sparse N/IUPAC/invalid bytes, so
+    that windows of 3 * 32 bases survive."""
+    rng = np.random.default_rng(seed)
+    b = np.frombuffer(b"ACGTacgtU", np.uint8)[rng.integers(0, 9, L)]
+    junk = rng.random(L) < 0.003
+    b[junk] = np.frombuffer(b"NRX-", np.uint8)[rng.integers(0, 4, int(junk.sum()))]
+    return b
+
+
+def _sixframe_wrappers(K):
+    if K <= 7:
+        return sixframe_windows, sixframe_windows_plain
+    return sixframe_words, sixframe_words_plain
+
+
+@pytest.mark.parametrize("K", SIXFRAME_KS)
+@pytest.mark.parametrize("L", [1, 3 * 32 - 1, 255, 256, 257, 5003, (1 << 20) - 20])
+def test_sixframe_kernels_match_plain(cuda, K, L):
+    b = torch.from_numpy(_aa_bytes(L, L + K)).to(cuda)
+    kernel, plain = _sixframe_wrappers(K)
+    # the strands clipped differently, as the JAX kernel's callers clip them
+    bounds = (3 * K, L - 5, 1, L // 2)
+    before = kernel.launches
+    got = kernel(b, K, bounds)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_same(got, plain(b.cpu(), K, bounds))
+
+
+@pytest.mark.parametrize("K", SIXFRAME_KS)
+@pytest.mark.parametrize("offset", [1, 3, 99999])
+def test_sixframe_kernels_on_odd_offsets(cuda, K, offset):
+    buf = torch.from_numpy(_aa_bytes(1 << 19, offset)).to(cuda)
+    view = buf[offset : offset + (1 << 18) - 7]
+    kernel, plain = _sixframe_wrappers(K)
+    bounds = (0, view.shape[0], 0, view.shape[0])
+    got = kernel(view, K, bounds, ncbi_trans_table[2])
+    torch.cuda.synchronize()
+    _assert_same(got, plain(view.cpu(), K, bounds, ncbi_trans_table[2]))
+    assert int(got[1]) > 0
+
+
+@pytest.mark.parametrize("K", [1, 7, 8, 15, 32])
+def test_sixframe_slice_on_cuda_matches_cpu(cuda, K):
+    data = _aa_bytes(300_000, 70 + K)
+    cfg = SixFrameCountConfig(K=K, chunk_size=1 << 16)
+    kernel, _ = _sixframe_wrappers(K)
+    k0, w0 = kernel.launches, rle_unit.launches
+    got = sixframe_aa_count(data, cfg, device="cuda")
+    n_chunks = len(range(0, data.size - 3 * K + 1, (1 << 16) - (3 * K - 1)))
+    assert kernel.launches - k0 == n_chunks and rle_unit.launches - w0 == n_chunks
+    want = sixframe_aa_count(data, cfg, device="cpu")
+    assert got[0].dtype == want[0].dtype and got[0].tolist() == want[0].tolist()
+    assert np.array_equal(got[1], want[1])

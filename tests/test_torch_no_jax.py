@@ -1,8 +1,9 @@
 """The port never imports jax, nor anything of the JAX package
 ``kmers_tpu``: a fresh interpreter imports ``kmers_tpu_torch``, runs the
 counting path (K = 7 and K = 40), minhash sketching, extraction,
-minimizers and the CLI's ``count`` and ``sketch`` on the CPU, and finds
-neither in ``sys.modules``; and no source of the port or of
+minimizers, six-frame counting (K = 7 and K = 15) and the CLI's ``count``,
+``sketch`` and ``sixframe`` on the CPU, and finds neither in
+``sys.modules``; and no source of the port or of
 ``chip_smoke.py`` has such an import."""
 
 import json
@@ -22,6 +23,9 @@ TOTAL = 49 * 10 + 2 * 2
 # 120 certain bases: 120 - 40 + 1 windows of K = 40, in two chunks
 DATA_40 = b"ACGT" * 30
 
+# 200 certain bases: 2 (200 - 3K + 1) six-frame windows of K amino acids
+DATA_AA = b"ACGTTGCAAC" * 20
+
 SCRIPT = f"""
 import json, sys
 import kmers_tpu_torch
@@ -35,14 +39,23 @@ kmers40, counts40 = kmers_tpu_torch.canonical_count_bytes(
 sketch = kmers_tpu_torch.minhash_sketch({DATA!r}, K=7, s=5, device="cpu")
 vals, pos = kmers_tpu_torch.extract_kmers({DATA!r}, K=7, device="cpu")
 mins, _ = kmers_tpu_torch.minimizer_select({DATA!r}, K=7, W=4, skip_ambiguous=True, device="cpu")
+aa7, aa_counts7 = kmers_tpu_torch.sixframe_aa_count(
+    {DATA_AA!r}, kmers_tpu_torch.SixFrameCountConfig(K=7), device="cpu",
+)
+aa15, aa_counts15 = kmers_tpu_torch.sixframe_aa_count(
+    {DATA_AA!r}, kmers_tpu_torch.SixFrameCountConfig(K=15, chunk_size=100), device="cpu",
+)
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--device", "cpu"])
 main(["sketch", sys.argv[1], "-k", "5", "-s", "3", "--device", "cpu"])
+main(["sixframe", sys.argv[1], "-k", "2", "--device", "cpu"])
 print(json.dumps({{
     "total": int(counts.sum()),
     "total40": int(counts40.sum()),
     "sketch": int(sketch.size),
     "extracted": int(vals.size),
     "minimizers": bool(mins.size),
+    "aa7": int(aa_counts7.sum()),
+    "aa15": int(aa_counts15.sum()),
     "jax": "jax" in sys.modules,
     "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu"),
 }}))
@@ -59,12 +72,15 @@ def test_port_runs_without_importing_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
-    # the CLI's top line, its sketch (a header and three hashes), then the
-    # script's result
-    assert len(lines) == 6 and lines[1] == "#kmers_tpu sketch k=5 s=3"
+    # the CLI's top line, its sketch (a header and three hashes), its
+    # six-frame totals, then the script's result
+    assert len(lines) == 7 and lines[1] == "#kmers_tpu sketch k=5 s=3"
+    # six-frame windows of 2 amino acids (6 bases) inside each record
+    assert json.loads(lines[5])["total"] == 2 * ((12 - 5) + (7 - 5))
     assert json.loads(lines[-1]) == {
         "total": TOTAL, "total40": 4 * 30 - 40 + 1, "sketch": 5, "extracted": TOTAL,
-        "minimizers": True, "jax": False, "kmers_tpu": [],
+        "minimizers": True, "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
+        "jax": False, "kmers_tpu": [],
     }
     assert json.loads(proc.stderr.strip().splitlines()[-1])["total"] == (12 - 4) + (7 - 4)
 
