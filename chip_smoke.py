@@ -13,18 +13,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    same four views at K = 1, 21, 31 and on the whole chromosome; K6 at its
    five (bps, K, canonical) cases on 2^20 symbols at an odd offset and on
    the whole chromosome; K4 at K = 1, 5, 7 and K5 at K = 8, 15, 32 on four
-   views with the strands clipped differently), with kernel, plain and
-   (for K2) library times (CUDA events, median of 20);
+   views with the strands clipped differently; K9 at edge cases, at a
+   chunk-table shape and at the K = 31 fold's last-merge shape; K10 on
+   K = 31, six-frame and K = 47 chunk tables), with kernel, plain and
+   library times (CUDA events, median of 20) and K9/K10 device times
+   (``torch.profiler``);
 4. slice K = 31: canonical counting of a synthetic 48,129,895-base
    chromosome (the length of GRCh37 chr21) on the card, exactly equal to
    an independent numpy reference, its first 100 kb equal to a
-   string-level Counter, the CLI's totals on a 3-record FASTA, and the
-   kernels' launch counts from the counting run;
+   string-level Counter, the CLI's totals on a 3-record FASTA, the
+   kernels' launch counts from the counting run (K9 once a merge, K10
+   once a chunk and once a merge), the fold's stream time and a
+   ``torch.profiler`` breakdown;
 5. slice K = 47 (multi-word registers, K3): the same chromosome, checks and
-   launch counts, a stage breakdown with synchronising timers and a
-   ``torch.profiler`` breakdown with the device's busy share; then a few
-   hundred kb at K = 63 (K3, three words) and K = 80 (plain windows)
-   against the numpy reference;
+   launch counts (K10 only: word tables merge by sorting), a stage
+   breakdown with synchronising timers and a ``torch.profiler`` breakdown
+   with the device's busy share; then a few hundred kb at K = 63 (K3,
+   three words) and K = 80 (plain windows) against the numpy reference;
 6. minhash + extract: on the same chromosome, ``minhash_sketch`` at K = 21,
    s = 1000 (K1's hash mode, with a ``torch.profiler`` breakdown) through
    the full-width fallback, and through the exact prefix on the chromosome
@@ -37,10 +42,19 @@ Phases, in order; any failure ends the run with a nonzero exit:
 7. six-frame: ``sixframe_aa_count`` at K = 7 on the same chromosome (K4,
    then sort and K2), exactly equal to an independent numpy reference that
    translates each strand's three frames, its first 100 kb equal to a
-   string-level Counter, with launch counts, wall time, amino-acid windows
-   per second and a ``torch.profiler`` breakdown; K = 15 on the first 8 Mb
-   (K5, the word path) and K = 8 and 32 on 1 Mb, each equal to numpy; the
-   CLI's ``sixframe`` on a 3-record FASTA equal to a string counter.
+   string-level Counter, with launch counts (K9 and K10 at K = 7, K10 at
+   K = 15), wall time, amino-acid windows per second, the fold's stream
+   time and a ``torch.profiler`` breakdown; K = 15 on the first 8 Mb (K5,
+   the word path) and K = 8 and 32 on 1 Mb, each equal to numpy; the CLI's
+   ``sixframe`` on a 3-record FASTA equal to a string counter;
+8. streaming, tables, bench: ``count_fastx_stream`` over a FASTQ of
+   400,000 reads of 150 bp sampled from the chromosome (half of them
+   reverse-complemented) in batches of 16 MiB, equal to the numpy
+   reference of the records joined with N and to ``canonical_count_records``,
+   with its launch counts, rates and a profile; ``merge_counts_device`` of
+   the two halves' tables equal to the whole table, with K9's share of its
+   time; ``python -m kmers_tpu_torch bench`` (its four-key line); the CLI's
+   ``count --stream`` on a 3-record FASTQ equal to a string counter.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON, and the one before that the card's name and
@@ -75,6 +89,8 @@ S_SKETCH = 1000
 GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False)]
 K_AA = 7  # six-frame counting: K4's widest K, the JAX package's default
 K_AA_MW = 15
+READS, READ_LEN = 400_000, 150  # the streamed read set (phase 8)
+STREAM_BATCH = 1 << 24
 #: NCBI transl_table 1 (amino acids of TTT, TTC, TTA, ... in T, C, A, G
 #: order) and the amino-acid alphabet whose index is an amino acid's code
 NCBI_STANDARD = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
@@ -405,7 +421,11 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
     categories = collections.Counter()
     for name, (_, secs) in per_name.items():
         low = name.lower()
-        if "sixframe_kernel" in name:
+        if "merge_tables_kernel" in name:
+            cat = "K9 merge_tables"
+        elif "compact_" in name and "_kernel" in name:
+            cat = "K10 compact_table"
+        elif "sixframe_kernel" in name:
             cat = "K4/K5 sixframe_windows / sixframe_words"
         elif "canonical_windows_mw_kernel" in name:
             cat = "K3 canonical_words"
@@ -458,6 +478,59 @@ def stage_timers(targets):
     finally:
         for (module, name), fn in saved.items():
             setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def stream_timers(targets):
+    """Wrap ``module.<name>`` for each ``(module, name)`` of ``targets``
+    with CUDA events on the current stream, adding no synchronisation;
+    yields {name: [calls, ms]}, filled in on exit (after one synchronise):
+    the stream time from each call's first enqueued kernel to its last."""
+    import torch
+
+    pairs = collections.defaultdict(list)
+    saved = {(module, name): getattr(module, name) for module, name in targets}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            pairs[name].append((start, end))
+            return out
+        return run
+
+    totals = {}
+    try:
+        for (module, name), fn in saved.items():
+            setattr(module, name, timed(name, fn))
+        yield totals
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+        torch.cuda.synchronize()
+        for name, events in pairs.items():
+            totals[name] = [len(events), sum(a.elapsed_time(b) for a, b in events)]
+
+
+def log_fold(tag: str, fn, merge_module, smi: str) -> dict:
+    """Run ``fn`` once with the fold's two calls on CUDA-event timers (the
+    merges of ``merge_module`` and the chunk compactions of the chunk loop)
+    and log their stream time; returns {name: [calls, ms]}."""
+    stream = importlib.import_module("kmers_tpu_torch.pipelines._stream")
+    targets = [(merge_module, "merge_compact_tables"), (stream, "compact_counts")]
+    t0 = time.perf_counter()
+    with stream_timers(targets) as fold:
+        fn()
+    wall = time.perf_counter() - t0
+    merges = fold.get("merge_compact_tables", [0, 0.0])
+    packs = fold.get("compact_counts", [0, 0.0])
+    log(f"[{tag}] fold (CUDA events, {wall:.3f} s call): merges {merges[1]:.3f} ms over "
+        f"{merges[0]} calls (K9, weighted RLE, K10), chunk compactions {packs[1]:.3f} ms over "
+        f"{packs[0]} calls (K10); {merges[1] + packs[1]:.3f} ms in all ({smi})")
+    return fold
 
 
 # ---------------------------------------------------------------- phases
@@ -685,9 +758,13 @@ def phase_kernels(chrom: np.ndarray):
     log(f"[kernels] K2 at 2^20 keys: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, "
         f"torch.unique_consecutive {k2_lib_ms:.4f} ms")
 
+    merge_entry, compact_entry = kernels_fold(clean)
+
     W = n_words(K_MW)
     W_AA = n_words(K_AA_MW, 8)
     return {
+        "merge_tables": merge_entry,
+        "compact_table": compact_entry,
         "canonical_windows": dict(
             route="cuda", source="kmers_tpu_torch/csrc/window_kernel.cu",
             replaces="kmers_tpu/ops/pallas/window_kernel.py:518",
@@ -740,6 +817,144 @@ def phase_kernels(chrom: np.ndarray):
     }
 
 
+def device_us(fn, marker: str, reps: int = 5) -> float:
+    """Device time of one launch of each kernel whose name holds
+    ``marker``, summed over those kernels (``torch.profiler``), in
+    microseconds; per launch seen, so a launch the trace drops does not
+    lower it."""
+    _, _, _, per_name = device_profile(fn, reps, warm=True)
+    return 1e6 * sum(secs / calls for name, (calls, secs) in per_name.items() if marker in name and calls)
+
+
+def kernels_fold(clean):
+    """K9 and K10 against their plain versions at edge cases and at the
+    main paths' shapes; returns their entries of the kernels line."""
+    import torch
+
+    from kmers_tpu_torch.convert import SENTINEL
+    from kmers_tpu_torch.ops.count import compact_counts, sort_count
+    from kmers_tpu_torch.ops.kernels.merge_kernel import (
+        compact_table,
+        compact_table_plain,
+        merge_tables,
+        merge_tables_plain,
+    )
+    from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words
+    from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows
+    from kmers_tpu_torch.ops.multiword import sort_count_mw
+
+    dev = torch.device("cuda")
+
+    def counts_for(keys, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(1, 1 << 40, keys.shape, generator=g, device=dev)
+
+    def chunk_table(view):
+        uniq, counts, nu = sort_count(canonical_windows(view, K)[0])
+        keys, counts = compact_counts(uniq, counts)
+        return keys[: int(nu)].contiguous(), counts[: int(nu)].contiguous()
+
+    # chunk tables of two overlapping K = 31 chunks (shared keys tie)
+    ka, ca = chunk_table(clean)
+    kb, cb = chunk_table(clean[CHUNK // 2 :])
+    # the K = 31 fold's last merge: sorted distinct random keys, 33 M and
+    # 14 M rows, a sixteenth of A's keys also in B
+    g = torch.Generator(device=dev).manual_seed(31)
+    big_a = torch.unique(torch.randint(0, 1 << 62, (33_000_000,), generator=g, device=dev))
+    big_b = torch.unique(torch.cat([big_a[::16], torch.randint(0, 1 << 62, (12_000_000,), generator=g,
+                                                                device=dev)]))
+    big = (big_a, counts_for(big_a, 1), big_b, counts_for(big_b, 2))
+    dup_a = torch.repeat_interleave(torch.arange(10, device=dev), 3000)
+    dup_b = torch.repeat_interleave(torch.arange(10, device=dev), 2100)
+    sent_b = kb.clone()
+    sent_b[-1000:] = SENTINEL
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    cases = {
+        "heavy duplication": (dup_a, counts_for(dup_a, 3), dup_b, counts_for(dup_b, 4)),
+        "a empty": (empty, empty, kb, cb),
+        "one row each": (ka[:1], ca[:1], ka[:1], cb[:1]),
+        "odd lengths": (ka[:2049], ca[:2049], kb[:6143], cb[:6143]),
+        "sentinel tail": (ka, ca, sent_b, cb),
+        "chunk tables": (ka, ca, kb, cb),
+        "last-merge shape": big,
+    }
+    k9_err = 0.0
+    for name, args in cases.items():
+        got = merge_tables(*args)
+        want = merge_tables_plain(*args)
+        torch.cuda.synchronize()
+        require(all(torch_equal(g_, w_) for g_, w_ in zip(got, want)), f"K9 != plain: {name}")
+        k9_err = max(k9_err, max_abs_err(got, want))
+        log(f"[kernels] K9 merge_tables {name} ({args[0].numel()} + {args[2].numel()} rows): "
+            "bit-equal to plain")
+    n_chunk = ka.numel() + kb.numel()
+    chunk_ms = median_ms(lambda: merge_tables(ka, ca, kb, cb))
+    n_big = big_a.numel() + big_b.numel()
+    k9_ms = median_ms(lambda: merge_tables(*big))
+    k9_plain_ms = median_ms(lambda: merge_tables_plain(*big))
+    cat = torch.cat([big_a, big_b])
+    # the call the merges made before K9: the sort of the concatenated keys
+    # with its indices
+    k9_lib_ms = median_ms(lambda: torch.sort(cat, stable=True))
+    del cat
+    k9_us = device_us(lambda: merge_tables(*big), "merge_tables_kernel")
+    log(f"[kernels] K9 at {ka.numel()} + {kb.numel()} rows: kernel {chunk_ms:.4f} ms; at "
+        f"{big_a.numel()} + {big_b.numel()} rows: kernel {k9_ms:.4f} ms ({k9_us:.1f} us of device "
+        f"time), plain {k9_plain_ms:.4f} ms, torch.sort with indices {k9_lib_ms:.4f} ms, bound "
+        f"{bound_ms(32 * n_big):.4f} ms")
+    del big, big_a, big_b
+
+    # K10 on chunk tables: K = 31 (2^20), six-frame K = 7 (2^21), K = 47
+    # (two words of 2^19)
+    t31 = sort_count(canonical_windows(clean, K)[0])[:2]
+    t_aa = sort_count(sixframe_windows(clean, K_AA, (0, CHUNK, 0, CHUNK))[0])[:2]
+    t47 = sort_count_mw(canonical_words(clean[:CHUNK_MW], K_MW)[0])[:2]
+    k10_err = 0.0
+    zeros = torch.zeros(CHUNK, dtype=torch.int64, device=dev)
+    for name, (keys, counts) in {
+        "K = 31 chunk table (2^20)": t31, "six-frame chunk table (2^21)": t_aa,
+        "K = 47 chunk table (2 x 2^19)": t47, "no real row": (t31[0], zeros),
+        "every row real": (t31[0], counts_for(t31[0], 5)), "2049 rows": (t31[0][:2049], t31[1][:2049]),
+    }.items():
+        got = compact_table(keys, counts)
+        want = compact_table_plain(keys, counts)
+        torch.cuda.synchronize()
+        require(all(torch_equal(g_, w_) for g_, w_ in zip(got, want)), f"K10 != plain: {name}")
+        k10_err = max(k10_err, max_abs_err(got, want))
+        log(f"[kernels] K10 compact_table {name}: bit-equal to plain ({int((counts > 0).sum())} real "
+            f"of {counts.numel()} rows)")
+    keys, counts = t31
+    k10_ms = median_ms(lambda: compact_table(keys, counts))
+    k10_plain_ms = median_ms(lambda: compact_table_plain(keys, counts))
+    real = counts > 0
+    # one call for the front-packed rows (without the tail)
+    k10_lib_ms = median_ms(lambda: torch.masked_select(keys, real))
+    k10_us = device_us(lambda: compact_table(keys, counts), "compact_")
+    aa_ms = median_ms(lambda: compact_table(*t_aa))
+    w47_ms = median_ms(lambda: compact_table(*t47))
+    log(f"[kernels] K10 at 2^20 rows: kernel {k10_ms:.4f} ms ({k10_us:.1f} us of device time, three "
+        f"launches), plain {k10_plain_ms:.4f} ms, torch.masked_select {k10_lib_ms:.4f} ms, bound "
+        f"{bound_ms(32 * CHUNK):.5f} ms; at 2^21 rows {aa_ms:.4f} ms; at 2 x 2^19 words {w47_ms:.4f} ms")
+    merge_entry = dict(
+        route="cuda", source="kmers_tpu_torch/csrc/merge_kernel.cu",
+        replaces="kmers_tpu/ops/pallas/merge_kernel.py:99",
+        max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain_ms,
+        # a 16-byte row (key, count) read once and written once
+        bound_ms=bound_ms(32 * n_big), bound_by="bytes", library_ms=k9_lib_ms,
+        device_us=k9_us, chunk_shape_ms=chunk_ms, chunk_shape_rows=n_chunk,
+    )
+    compact_entry = dict(
+        route="cuda", source="kmers_tpu_torch/csrc/merge_kernel.cu",
+        replaces="kmers_tpu/ops/pallas/merge_kernel.py:206",
+        max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms,
+        # a 16-byte row (key, count) read once and written once
+        bound_ms=bound_ms(32 * CHUNK), bound_by="bytes", library_ms=k10_lib_ms,
+        device_us=k10_us,
+    )
+    return merge_entry, compact_entry
+
+
 def _check_cli(chrom: np.ndarray, k: int):
     """The CLI on a 3-record FASTA: totals equal to the numpy reference."""
     L = chrom.size
@@ -762,14 +977,30 @@ def _check_cli(chrom: np.ndarray, k: int):
     log(f"[slice K={k}] CLI on a 3-record FASTA: {totals}")
 
 
+def require_fold_launches(launches: dict, n_chunks: int, merges: bool) -> None:
+    """The front-end and K2 once a chunk; K10 once a chunk and once a merge
+    of the level stack (n_chunks - 1 merges); K9 once a merge where tables
+    are one word (``merges``), never for word tables.  One chunk is neither
+    compacted nor merged."""
+    front = [name for name in launches if name not in ("rle_unit", "merge_tables", "compact_table")]
+    for name in [*front, "rle_unit"]:
+        require(launches[name] >= n_chunks, f"{name} launched {launches[name]} times for {n_chunks} chunks")
+    want = {"merge_tables": n_chunks - 1 if merges else 0,
+            "compact_table": 2 * n_chunks - 1 if n_chunks > 1 else 0}
+    got = {name: launches[name] for name in want}
+    require(got == want, f"fold launches {got}, expected {want} for {n_chunks} chunks")
+
+
 def phase_slice(chrom: np.ndarray, smi: str):
     """The K = 31 path; returns its launch counts."""
     import torch
 
     from kmers_tpu_torch import CountConfig, canonical_count_bytes
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
     from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows
 
+    tcc = importlib.import_module("kmers_tpu_torch.pipelines.canonical_count")
     cfg = CountConfig(K=K)
     L = chrom.size
     n_chunks = len(range(0, L - K + 1, cfg.resolved_chunk_size - (K - 1)))
@@ -780,17 +1011,21 @@ def phase_slice(chrom: np.ndarray, smi: str):
 
     canonical_windows.launches = 0
     rle_unit.launches = 0
+    merge_tables.launches = 0
+    compact_table.launches = 0
     t0 = time.perf_counter()
     kmers, counts = canonical_count_bytes(chrom, cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {"canonical_windows": canonical_windows.launches, "rle_unit": rle_unit.launches}
+    launches = {"canonical_windows": canonical_windows.launches, "rle_unit": rle_unit.launches,
+                "merge_tables": merge_tables.launches, "compact_table": compact_table.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"[slice K={K}] {L} bases, {n_chunks} chunks of 2^20: {wall:.3f} s wall, "
         f"{L / wall:.0f} bases/s, {kmers.size} distinct, {int(counts.sum())} counted, "
         f"peak device memory {peak} bytes ({smi})")
     log(f"[slice K={K}] launches during the run: {launches}")
-    for name, count in launches.items():
-        require(count >= n_chunks, f"{name} launched {count} times for {n_chunks} chunks")
+    require_fold_launches(launches, n_chunks, merges=True)
+    log_fold(f"slice K={K}", lambda: canonical_count_bytes(chrom, cfg, device="cuda"), tcc, smi)
+    _log_profile(f"slice K={K}", lambda: canonical_count_bytes(chrom, cfg, device="cuda"), smi, reps=1)
 
     require(kmers.dtype == np.uint64 and counts.dtype == np.int64, "output dtypes")
     t0 = time.perf_counter()
@@ -816,6 +1051,7 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
     import torch
 
     from kmers_tpu_torch import CountConfig, canonical_count_bytes
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
     from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
 
@@ -831,17 +1067,19 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
 
     canonical_words.launches = 0
     rle_unit.launches = 0
+    merge_tables.launches = 0
+    compact_table.launches = 0
     t0 = time.perf_counter()
     kmers, counts = canonical_count_bytes(chrom, cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {"canonical_words": canonical_words.launches, "rle_unit": rle_unit.launches}
+    launches = {"canonical_words": canonical_words.launches, "rle_unit": rle_unit.launches,
+                "merge_tables": merge_tables.launches, "compact_table": compact_table.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"[slice K={K_MW}] {L} bases, {n_chunks} chunks of 2^19: {wall:.3f} s wall, "
         f"{L / wall:.0f} bases/s, {kmers.size} distinct, {int(counts.sum())} counted, "
         f"peak device memory {peak} bytes ({smi})")
     log(f"[slice K={K_MW}] launches during the run: {launches}")
-    for name, count in launches.items():
-        require(count >= n_chunks, f"{name} launched {count} times for {n_chunks} chunks")
+    require_fold_launches(launches, n_chunks, merges=False)
     require(kmers.dtype == object and counts.dtype == np.int64, "K=47 output dtypes")
 
     # where the time goes: synchronising timers around each stage of one
@@ -906,17 +1144,22 @@ def _fasta(path: Path, records) -> None:
     path.write_bytes(b"".join(b">r%d\n%s\n" % (i, r.tobytes()) for i, r in enumerate(records)))
 
 
-def _cli(*args) -> str:
+def _cli_run(*args) -> subprocess.CompletedProcess:
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     proc = subprocess.run([sys.executable, "-m", "kmers_tpu_torch", *args],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     require(proc.returncode == 0, f"CLI {args[0]} failed: {proc.stderr[-2000:]}")
-    return proc.stdout
+    return proc
 
 
-def _log_profile(tag: str, fn, smi: str, reps: int = 3) -> None:
-    """Log the per-call ``torch.profiler`` breakdown of ``reps`` calls."""
-    p_wall, busy, categories, per_name = device_profile(fn, reps, warm=True)
+def _cli(*args) -> str:
+    return _cli_run(*args).stdout
+
+
+def _log_profile(tag: str, fn, smi: str, reps: int = 3, warm: bool = True) -> None:
+    """Log the per-call ``torch.profiler`` breakdown of ``reps`` calls
+    (after one untimed call, with ``warm``)."""
+    p_wall, busy, categories, per_name = device_profile(fn, reps, warm=warm)
     log(f"[{tag}] profile of {reps} calls: {p_wall:.4f} s wall a call, device busy {busy:.4f} s "
         f"({100 * busy / p_wall:.1f} % of the call; {smi})")
     for cat, secs in categories.most_common():
@@ -1081,6 +1324,7 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
     import torch
 
     from kmers_tpu_torch import SixFrameCountConfig, sixframe_aa_count
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
     from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows, sixframe_words
 
@@ -1095,10 +1339,13 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
 
     sixframe_windows.launches = 0
     rle_unit.launches = 0
+    merge_tables.launches = 0
+    compact_table.launches = 0
     t0 = time.perf_counter()
     kmers, counts = sixframe_aa_count(chrom, cfg, device="cuda")
     wall = time.perf_counter() - t0
-    run = {"sixframe_windows": sixframe_windows.launches, "rle_unit": rle_unit.launches}
+    run = {"sixframe_windows": sixframe_windows.launches, "rle_unit": rle_unit.launches,
+           "merge_tables": merge_tables.launches, "compact_table": compact_table.launches}
     launches.update(run)
     peak = torch.cuda.max_memory_allocated()
     total = int(counts.sum())
@@ -1106,9 +1353,10 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
         f"{total / wall:.0f} amino-acid windows/s, {L / wall:.0f} bases/s, {kmers.size} distinct, "
         f"{total} counted, peak device memory {peak} bytes ({smi})")
     log(f"[sixframe K={K_AA}] launches during the run: {run}")
-    for name, count in run.items():
-        require(count >= n_chunks, f"{name} launched {count} times for {n_chunks} chunks")
+    require_fold_launches(run, n_chunks, merges=True)
     require(kmers.dtype == np.uint64 and counts.dtype == np.int64, "six-frame output dtypes")
+    log_fold(f"sixframe K={K_AA}", lambda: sixframe_aa_count(chrom, cfg, device="cuda"),
+             importlib.import_module("kmers_tpu_torch.pipelines.sixframe"), smi)
     _log_profile(f"sixframe K={K_AA}", lambda: sixframe_aa_count(chrom, cfg, device="cuda"), smi, reps=1)
 
     t0 = time.perf_counter()
@@ -1131,12 +1379,15 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
                     (32, chrom[5 * CHUNK : 6 * CHUNK])]:
         sixframe_words.launches = 0
         rle_unit.launches = 0
+        merge_tables.launches = 0
+        compact_table.launches = 0
         t0 = time.perf_counter()
         got = sixframe_aa_count(part, SixFrameCountConfig(K=k), device="cuda")
         wall = time.perf_counter() - t0
-        run = {"sixframe_words": sixframe_words.launches, "rle_unit": rle_unit.launches}
+        run = {"sixframe_words": sixframe_words.launches, "rle_unit": rle_unit.launches,
+               "merge_tables": merge_tables.launches, "compact_table": compact_table.launches}
         chunks = len(range(0, part.size - 3 * k + 1, cfg.chunk_size - (3 * k - 1)))
-        require(all(c >= chunks for c in run.values()), f"K={k} launches {run} for {chunks} chunks")
+        require_fold_launches(run, chunks, merges=False)
         if k == K_AA_MW:
             launches.update(run)
             _log_profile(f"sixframe K={k}", lambda: sixframe_aa_count(part, SixFrameCountConfig(K=k),
@@ -1163,6 +1414,195 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
     return launches
 
 
+def sample_reads(chrom: np.ndarray, n: int, length: int, seed: int) -> np.ndarray:
+    """``(n, length)`` reads at random positions of ``chrom``, half of them
+    reverse-complemented (ACGT and acgt complemented, other bytes kept)."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, chrom.size - length, n)
+    reads = np.lib.stride_tricks.sliding_window_view(chrom, length)[starts]
+    comp = np.arange(256, dtype=np.uint8)
+    for a, b in (b"AT", b"TA", b"CG", b"GC", b"at", b"ta", b"cg", b"gc"):
+        comp[a] = b
+    rc = rng.random(n) < 0.5
+    reads[rc] = comp[reads[rc][:, ::-1]]
+    return reads
+
+
+def write_fastq(path: Path, reads: np.ndarray) -> None:
+    """One 4-line FASTQ record a read (fixed-width headers, quality 'I')."""
+    n, length = reads.shape
+    head = np.frombuffer(b"".join(b"@r%08d\n" % i for i in range(n)), np.uint8).reshape(n, 11)
+    rows = np.concatenate([head, reads, np.full((n, 1), ord("\n"), np.uint8),
+                           np.frombuffer(b"+\n", np.uint8)[None].repeat(n, 0),
+                           np.full((n, length), ord("I"), np.uint8),
+                           np.full((n, 1), ord("\n"), np.uint8)], axis=1)
+    path.write_bytes(rows.tobytes())
+
+
+def phase_bench(smi: str) -> dict:
+    """The ``bench`` path in this process: K1 and K2 against their plain
+    versions at its shape (one chunk of 2^26 bytes), ``bench`` run with the
+    launch counts from 0 (one warm-up and three timed calls: 4 of K1 and of
+    K2), and the distinct count of each of its calls against numpy; returns
+    the run's launch counts."""
+    import torch
+
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows, canonical_windows_plain
+
+    cc = importlib.import_module("kmers_tpu_torch.pipelines.canonical_count")
+    data = cc.bench_input()
+    buf = torch.from_numpy(data).to("cuda")
+    got = canonical_windows(buf, K)
+    want = canonical_windows_plain(buf, K)
+    require(all(torch_equal(g, w) for g, w in zip(got, want)), "K1 != plain at the bench shape")
+    keys = torch.sort(got[0]).values
+    del got, want
+    got = rle_unit(keys)
+    want = rle_unit_plain(keys)
+    require(all(torch_equal(g, w) for g, w in zip(got, want)), "K2 != plain at the bench shape")
+    log(f"[bench] K1 and K2 bit-equal to plain on {data.size} bytes, K={K} (n_unique={int(got[2])})")
+    del got, want, keys, buf
+
+    # record the scalars of every chunk bench counts; the wrapper adds no
+    # synchronisation
+    scalars = []
+    count_chunk = cc._count_chunk
+
+    def spy(chunk, k, track):
+        out = count_chunk(chunk, k, track)
+        scalars.append(out[1])
+        return out
+
+    canonical_windows.launches = 0
+    rle_unit.launches = 0
+    cc._count_chunk = spy
+    try:
+        line = cc.bench(device="cuda")
+    finally:
+        cc._count_chunk = count_chunk
+    launches = {"canonical_windows": canonical_windows.launches, "rle_unit": rle_unit.launches}
+    require(launches == {"canonical_windows": 4, "rle_unit": 4}, f"bench launched {launches}")
+    require(list(line) == ["metric", "value", "unit", "vs_baseline"] and line["value"] > 0,
+            f"bench line {line}")
+    t0 = time.perf_counter()
+    _, ref_c = numpy_reference(data, K)
+    runs = [s.tolist() for s in scalars]
+    require(runs == [[ref_c.size, 0, 0]] * 4,
+            f"bench's [n_unique, n_invalid, n_ambig] {runs}, numpy has {ref_c.size} distinct")
+    log(f"[bench] in process: {json.dumps(line)}, launches {launches}; each call's distinct count "
+        f"{ref_c.size} equal to numpy (reference in {time.perf_counter() - t0:.1f} s; {smi})")
+    return launches
+
+
+def phase_stream(chrom: np.ndarray, smi: str):
+    """Streamed counting of a FASTQ read set, the device merge of two
+    halves' tables, the ``bench`` path and the CLI's ``count --stream``;
+    returns the launch counts of the streamed run, the merge and ``bench``."""
+    import torch
+
+    from kmers_tpu_torch import CountConfig, canonical_count_records, count_fastx_stream, merge_counts_device
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows
+
+    cfg = CountConfig(K=K)
+    reads = sample_reads(chrom, READS, READ_LEN, seed=8)
+    offsets = np.arange(0, READS * READ_LEN + 1, READ_LEN)
+    # the records joined with N, as the pipelines join them
+    joined = np.full((READS, READ_LEN + 1), ord("N"), np.uint8)
+    joined[:, :READ_LEN] = reads
+    joined = joined.reshape(-1)[:-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = Path(tmp) / "reads.fq"
+        write_fastq(fq, reads)
+        size = fq.stat().st_size
+        kernels = (canonical_windows, rle_unit, merge_tables, compact_table)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        kmers, counts = count_fastx_stream(fq, cfg, batch_bytes=STREAM_BATCH, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        log(f"[stream] count_fastx_stream K={K} over {READS} reads of {READ_LEN} bp ({size} bytes of "
+            f"FASTQ, batches of {STREAM_BATCH} bytes): {wall:.3f} s wall, {READS / wall:.0f} reads/s, "
+            f"{READS * READ_LEN / wall:.0f} bases/s, {kmers.size} distinct, {int(counts.sum())} counted "
+            f"({smi})")
+        log(f"[stream] launches during the run: {launches}")
+        n_chunks = launches["canonical_windows"]
+        require(n_chunks >= -(-joined.size // CHUNK), f"streamed run took {n_chunks} chunks")
+        require_fold_launches(launches, n_chunks, merges=True)
+        _log_profile("stream", lambda: count_fastx_stream(fq, cfg, batch_bytes=STREAM_BATCH, device="cuda"),
+                     smi, reps=1, warm=False)
+    t0 = time.perf_counter()
+    ref_w, ref_c = numpy_reference(joined, K)
+    log(f"[stream] numpy reference of the joined records in {time.perf_counter() - t0:.1f} s: "
+        f"{ref_c.size} distinct")
+    require(np.array_equal(kmers, ref_w[0]) and np.array_equal(counts, ref_c),
+            "streamed counts differ from the numpy reference")
+    del ref_w, ref_c, joined
+    whole = canonical_count_records(reads.reshape(-1), offsets, cfg, device="cuda")
+    require(np.array_equal(kmers, whole[0]) and np.array_equal(counts, whole[1]),
+            "streamed counts differ from canonical_count_records")
+    log("[stream] equal to the numpy reference and to canonical_count_records on the card")
+
+    # the device merge of the two halves' tables: records never share a
+    # window, so it is the table of all the reads
+    half = READS // 2
+    a = canonical_count_records(reads[:half].reshape(-1), offsets[: half + 1], cfg, device="cuda")
+    b = canonical_count_records(reads[half:].reshape(-1), offsets[: half + 1], cfg, device="cuda")
+    merge_counts_device(*a, *b, device="cuda")  # warm-up
+    count_ops = importlib.import_module("kmers_tpu_torch.ops.count")
+    merge_tables.launches = 0
+    compact_table.launches = 0
+    t0 = time.perf_counter()
+    with stream_timers([(count_ops, "merge_tables"), (count_ops, "compact_table")]) as fold:
+        merged = merge_counts_device(*a, *b, device="cuda")
+    m_wall = time.perf_counter() - t0
+    m_launches = {"merge_tables": merge_tables.launches, "compact_table": compact_table.launches}
+    require(m_launches == {"merge_tables": 1, "compact_table": 1},
+            f"merge_counts_device launched {m_launches}, not one K9 and one K10")
+    require(np.array_equal(merged[0], kmers) and np.array_equal(merged[1], counts),
+            "merge_counts_device of the halves differs from the whole table")
+    k9_ms, k10_ms = fold["merge_tables"][1], fold["compact_table"][1]
+    log(f"[tables] merge_counts_device of {a[0].size} + {b[0].size} rows: {1e3 * m_wall:.3f} ms wall "
+        f"(upload, fold, download), K9 {k9_ms:.3f} ms ({100 * k9_ms / 1e3 / m_wall:.2f} % of it), "
+        f"K10 {k10_ms:.3f} ms (CUDA events), launches {m_launches}; equal to the table of all reads "
+        f"({smi})")
+    _log_profile("tables", lambda: merge_counts_device(*a, *b, device="cuda"), smi)
+    del a, b, merged, whole, reads
+    bench_launches = phase_bench(smi)
+
+    # the CLI's bench command, as a user runs it
+    line = json.loads(_cli("bench").strip().splitlines()[-1])
+    require(list(line) == ["metric", "value", "unit", "vs_baseline"]
+            and line["metric"] == "canonical_31mer_count_bases_per_sec_per_chip" and line["value"] > 0,
+            f"bench line {line}")
+    log(f"[bench] {json.dumps(line)} ({smi})")
+
+    # the CLI's count --stream on three records (the last one crosses into
+    # the poly-A run, so the top counts exceed 1)
+    L = chrom.size
+    records = [chrom[200_000:220_000], chrom[L // 2 - 10_000 : L // 2 + 10_000], chrom[L // 3 - 1000 : L // 3 + 1000]]
+    want = collections.Counter()
+    for r in records:
+        want.update(string_counter(r.tobytes().decode(), K))
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = Path(tmp) / "three.fq"
+        fq.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(), b"I" * r.size)
+                                for i, r in enumerate(records)))
+        proc = _cli_run("count", str(fq), "-k", str(K), "--stream", "--top", "3")
+    totals = json.loads(proc.stderr.strip().splitlines()[-1])
+    require(totals == {"distinct": len(want), "total": sum(want.values())}, f"CLI count --stream totals {totals}")
+    digits = str.maketrans("ACGT", "0123")
+    top = [line.split("\t") for line in proc.stdout.strip().splitlines()]
+    require(len(top) == 3 and all(want[int(kmer.translate(digits), 4)] == int(c) for kmer, c in top)
+            and [int(c) for _, c in top] == sorted(want.values(), reverse=True)[:3],
+            f"CLI count --stream top lines {top}")
+    log(f"[stream] CLI count --stream on a 3-record FASTQ: {totals}, equal to the string counter")
+    return collections.Counter(launches) + collections.Counter(m_launches) + collections.Counter(bench_launches)
+
+
 def main() -> int:
     import torch
 
@@ -1184,13 +1624,16 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_sixframe = phase_sixframe(chrom, smi)
     log(f"[sixframe] six-frame phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_stream = phase_stream(chrom, smi)
+    log(f"[stream] streaming, tables and bench phase in {time.perf_counter() - t0:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules if m.split(".")[0] == "kmers_tpu"],
             "the JAX package was imported")
 
     # launches: each kernel's count over the paths that run it
     launches = (collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
-                + launches_sixframe)
+                + launches_sixframe + collections.Counter(launches_stream))
     kernels = [
         {"name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
          "launches": launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],

@@ -14,11 +14,15 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
 - ``ops``: classification, window registers (2, 4 and 8 bits a symbol),
   FxHash, minimizers and syncmers, translation and reverse translation,
   six-frame amino-acid windows, sort-based counting of one- and
-  multi-word registers, and the hand-written CUDA kernels in
+  multi-word registers, the device table fold (merge and compaction),
+  and the hand-written CUDA kernels in
   ``ops.kernels`` (sources in ``csrc/``).
 - ``pipelines``: canonical k-mer counting for 1 <= K <= 100 and
-  composition vectors; MinHash sketching (``minhash_sketch``,
-  ``StreamingSketcher``, ``sketch_fastx_stream``, ``jaccard``); k-mer
+  composition vectors; streamed counting (``StreamingCounter``,
+  ``count_fastx_stream``) and the count-table algebra (``merge_counts``,
+  ``merge_counts_device`` and the rest of ``pipelines.tables``); MinHash
+  sketching (``minhash_sketch``, ``StreamingSketcher``,
+  ``sketch_fastx_stream``, ``jaccard``); k-mer
   extraction (``extract_kmers``, ``spaced_kmers``, ``minimizer_select``,
   ``syncmer_select``); six-frame amino-acid k-mer counting
   (``sixframe_aa_count``, ``SixFrameCountConfig``).
@@ -37,21 +41,30 @@ from .convert import SENTINEL
 from .genetic_codes import GeneticCode, ncbi_trans_table, standard_genetic_code
 from .pipelines import (
     CountConfig,
+    StreamingCounter,
     StreamingSketcher,
     canonical_count,
     canonical_count_bytes,
     canonical_count_records,
     composition_vector,
+    containment,
+    count_fastx_stream,
     counts_lookup,
     counts_to_dict,
     extract_kmers,
+    intersect_counts,
     jaccard,
+    jaccard_exact,
+    merge_counts,
+    merge_counts_device,
     minhash_sketch,
     minimizer_select,
+    multiplicity_spectrum,
     SixFrameCountConfig,
     sixframe_aa_count,
     sketch_fastx_stream,
     spaced_kmers,
+    subtract_counts,
     syncmer_select,
 )
 
@@ -64,6 +77,15 @@ __all__ = [
     "composition_vector",
     "counts_lookup",
     "counts_to_dict",
+    "StreamingCounter",
+    "count_fastx_stream",
+    "merge_counts",
+    "intersect_counts",
+    "subtract_counts",
+    "multiplicity_spectrum",
+    "merge_counts_device",
+    "jaccard_exact",
+    "containment",
     "minhash_sketch",
     "StreamingSketcher",
     "sketch_fastx_stream",

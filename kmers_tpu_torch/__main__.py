@@ -1,10 +1,11 @@
 """Command-line front-end: ``python -m kmers_tpu_torch count reads.fa``.
 
 The port's counterpart of ``python -m kmers_tpu`` for the commands
-``count`` (without ``-o`` and ``--stream``, which are not ported yet),
-``sketch``, ``dist`` and ``sixframe`` (on one device): the same lines on
-stdout and stderr.  Every
-command takes ``--device`` (``cuda``, the default, or ``cpu``).
+``count`` (with ``--stream``), ``sketch``, ``dist``, ``sixframe`` (on one
+device) and ``bench``: the same lines on stdout and stderr.  Every command
+takes ``--device`` (``cuda``, the default, or ``cpu``).  ``count -o`` and
+the ``merge`` and ``verify`` commands need the count-table checkpoints of
+``utils/checkpoint.py``, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,10 +30,20 @@ def cmd_count(args):
     m = Metrics() if args.metrics else None
     ctx = checked() if args.checked else contextlib.nullcontext()
     with ctx:
-        seq, off = read_fastx(args.input)
-        kmers, counts = canonical_count_records(
-            seq, off, CountConfig(K=args.k), metrics=m, device=args.device
-        )
+        if args.stream:
+            # never loads the file: record batches stream through the
+            # device-resident accumulator, which always checks window
+            # conservation
+            from .pipelines.streaming import count_fastx_stream
+
+            kmers, counts = count_fastx_stream(
+                args.input, CountConfig(K=args.k), metrics=m, device=args.device
+            )
+        else:
+            seq, off = read_fastx(args.input)
+            kmers, counts = canonical_count_records(
+                seq, off, CountConfig(K=args.k), metrics=m, device=args.device
+            )
     if m is not None:
         print(m.dump(), file=sys.stderr)
     top = np.argsort(counts)[::-1][: args.top]
@@ -122,6 +133,12 @@ def cmd_sixframe(args):
     print(json.dumps({"distinct": int(kmers.size), "total": int(counts.sum())}))
 
 
+def cmd_bench(args):
+    from .pipelines.canonical_count import bench
+
+    print(json.dumps(bench(device=args.device)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="kmers_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -137,6 +154,11 @@ def main(argv=None):
     c.add_argument(
         "--checked", action="store_true",
         help="enable checked mode (verifies count conservation)",
+    )
+    c.add_argument(
+        "--stream", action="store_true",
+        help="stream the file in record batches instead of loading it "
+        "(files larger than host memory; K <= 31)",
     )
     c.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     c.set_defaults(fn=cmd_count)
@@ -166,6 +188,10 @@ def main(argv=None):
     f.add_argument("-k", type=int, default=7)
     f.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     f.set_defaults(fn=cmd_sixframe)
+
+    b = sub.add_parser("bench", help="headline throughput benchmark (canonical 31-mers, 2^26 bases)")
+    b.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

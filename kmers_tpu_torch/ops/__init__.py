@@ -1,7 +1,7 @@
 """The port's compute plane: classification, window registers, hashing,
 minimizers, translation and reverse translation, six-frame amino-acid
-windows, counting of one- and multi-word registers, and the CUDA kernels
-(``ops.kernels``)."""
+windows, counting of one- and multi-word registers, the device table fold
+(merge and compaction), and the CUDA kernels (``ops.kernels``)."""
 
 from .count import (
     SENTINEL,

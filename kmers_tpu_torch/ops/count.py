@@ -1,14 +1,19 @@
-"""Sort-based unique counting of int64 key streams.
+"""Sort-based unique counting of int64 key streams, and the device table
+fold.
 
 Counterpart of ``kmers_tpu/ops/count.py``.  Counting is ``torch.sort``
 (the one library algorithm on the path, as ``lax.sort`` is in JAX) followed
-by run-length encoding: unit weights through kernel K2 for a chunk, count
-weights through the plain weighted RLE for table merges.
+by run-length encoding with unit weights (kernel K2).  A chunk's table is
+sentinel-interspersed as in the JAX package: each run's last slot keeps its
+key and total, every other slot holds :data:`SENTINEL` and count 0, and real
+rows stay sorted.  Keys are int64 registers of at most 62 bits
+(``convert.py``), counts int64.
 
-A count table is sentinel-interspersed as in the JAX package: each run's
-last slot keeps its key and total, every other slot holds
-:data:`SENTINEL` and count 0, and real rows stay sorted.  Keys are int64
-registers of at most 62 bits (``convert.py``), counts int64.
+The fold merges such tables once they are front-packed
+(:func:`compact_counts`, kernel K10): :func:`merge_compact_tables` is kernel
+K9 (the merge of two sorted tables), the weighted RLE that sums equal keys,
+and K10 again.  A CUDA tensor runs the kernels, a CPU tensor their plain
+versions.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..convert import KEY_BITS_MAX, SENTINEL
+from ..utils.debug import checked_mode
+from .kernels.merge_kernel import compact_table, merge_tables
 from .kernels.rle_kernel import rle_unit
 
 __all__ = [
@@ -78,33 +85,48 @@ def compact_counts(keys: torch.Tensor, counts: torch.Tensor):
     table, in order; the tail becomes sentinel/0.  ``keys`` is ``(n,)``
     or, for multi-word registers, ``(W, n)`` (the counterpart of both
     ``compact_counts`` and ``compact_counts_mw``).  Same length in and
-    out; rows are scattered to their rank, and every hole to a spare slot
-    that is dropped."""
-    n = counts.shape[0]
-    real = counts > 0
-    dest = torch.where(real, torch.cumsum(real, 0) - 1, n)
-    out_k = torch.full(
-        (*keys.shape[:-1], n + 1), SENTINEL, dtype=torch.int64, device=keys.device
-    )
-    out_c = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
-    out_k.scatter_(-1, dest.expand_as(keys), keys)
-    out_c.scatter_(0, dest, torch.where(real, counts.to(torch.int64), 0))
-    return out_k[..., :n], out_c[:n]
+    out.  Kernel K10 (``compact_table``)."""
+    return compact_table(keys.contiguous(), counts.to(torch.int64).contiguous())
 
 
 def merge_sorted_counts(keys_a, counts_a, keys_b, counts_b):
-    """Merge two count tables: concatenate, sort, and sum equal keys.
-    Returns ``(uniq, counts, n_unique)``, sentinel-interspersed."""
+    """Merge two count tables of any order: concatenate, sort, and sum
+    equal keys.  Returns ``(uniq, counts, n_unique)``,
+    sentinel-interspersed."""
     keys = torch.cat([keys_a, keys_b])
     counts = torch.cat([counts_a, counts_b]).to(torch.int64)
     skeys, order = torch.sort(keys, stable=False)
     return _run_length_encode(skeys, counts[order])
 
 
+def _check_sorted(name: str, keys: torch.Tensor) -> None:
+    if keys.shape[0] > 1 and bool((keys[1:] < keys[:-1]).any()):
+        raise ValueError(
+            f"checked mode: merge_compact_tables takes sorted tables, but table "
+            f"{name} is not sorted (front-pack a sentinel-interspersed table "
+            "with compact_counts first)"
+        )
+
+
 def merge_compact_tables(keys_a, counts_a, keys_b, counts_b):
-    """:func:`merge_sorted_counts`, front-packed by :func:`compact_counts`.
-    Returns ``(keys, counts, n_unique)``; the first ``n_unique`` rows are
-    the merged table."""
-    uniq, counts, n_unique = merge_sorted_counts(keys_a, counts_a, keys_b, counts_b)
-    keys, counts = compact_counts(uniq, counts)
+    """Merge two *sorted* count tables and sum equal keys.
+
+    Precondition (the JAX contract): both tables are sorted ascending by
+    key, with sentinel rows only at the tail, i.e. front-packed (as
+    :func:`compact_counts` leaves them); checked mode verifies it and
+    raises ``ValueError``.  The merge is kernel K9 (``merge_tables``), the
+    weighted RLE sums equal keys, and K10 (``compact_table``) front-packs
+    the result.  Returns ``(keys, counts, n_unique)`` of length
+    ``len(keys_a) + len(keys_b)``; the first ``n_unique`` rows are the
+    merged table, the rest sentinel/0.
+    """
+    if checked_mode():
+        _check_sorted("A", keys_a)
+        _check_sorted("B", keys_b)
+    keys, counts = merge_tables(
+        keys_a.contiguous(), counts_a.to(torch.int64).contiguous(),
+        keys_b.contiguous(), counts_b.to(torch.int64).contiguous(),
+    )
+    uniq, totals, n_unique = _run_length_encode(keys, counts)
+    keys, counts = compact_table(uniq, totals)
     return keys, counts, n_unique

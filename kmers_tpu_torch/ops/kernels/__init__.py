@@ -10,7 +10,13 @@ K3        ``multiword_kernel.canonical_words``  ``multiword_kernel.canonical_win
 K4        ``sixframe_kernel.sixframe_windows``  ``sixframe_kernel.sixframe_windows_u32_pallas``
 K5        ``sixframe_kernel.sixframe_words``    ``sixframe_kernel.sixframe_windows_mw_u32_pallas``
 K6        ``general_kernel.windows_general``    ``general_kernel.windows_pallas_general``
+K9        ``merge_kernel.merge_tables``         ``merge_kernel.bitonic_merge_tail_pallas``
+K10       ``merge_kernel.compact_table``        ``merge_kernel.compact_tail_pallas``
 ========  ====================================  ==================================================
+
+K7 (``window_kernel.canonical_windows_bytes_flat_pallas``, the byte form
+of K1 with flat outputs) is K1's function up to a bijective output order,
+so the port calls K1 for it (``pipelines/canonical_count.py::_count_chunk``).
 
 A wrapper given a CUDA tensor launches its kernel (built on first use by
 :mod:`._build`) or raises; given a CPU tensor it runs the plain version.

@@ -1,0 +1,161 @@
+"""K9, the merge of two sorted count tables, and K10, the front-packing of
+a count table: their wrappers and their plain versions.
+
+Counterparts of ``kmers_tpu/ops/pallas/merge_kernel.py::bitonic_merge_tail_pallas``
+and ``::compact_tail_pallas`` (the kernels are
+``kmers_tpu_torch/csrc/merge_kernel.cu``).  The TPU kernels run the in-tile
+steps of two networks, a bitonic merge and a log-shift compaction; the port
+computes the functions of those networks:
+
+- :func:`merge_tables`: the rows of two tables sorted ascending by key,
+  merged into one sorted table, each count moving with its key; on equal
+  keys A's row comes first.
+- :func:`compact_table`: the rows with ``counts > 0`` front-packed in
+  order, :data:`~kmers_tpu_torch.convert.SENTINEL`/0 after them, the
+  length unchanged.  Keys are ``(n,)`` or ``(W, n)`` word planes, which
+  move together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ...convert import SENTINEL
+from . import _build
+
+__all__ = ["merge_tables", "merge_tables_plain", "compact_table", "compact_table_plain"]
+
+def merge_tables_plain(keys_a, counts_a, keys_b, counts_b):
+    """Plain torch version of :func:`merge_tables`, on any device: a stable
+    sort of the concatenated keys (A's rows first, so A wins ties) and a
+    gather of the counts."""
+    keys, order = torch.sort(torch.cat([keys_a, keys_b]), stable=True)
+    return keys, torch.cat([counts_a, counts_b])[order]
+
+
+def compact_table_plain(keys, counts):
+    """Plain torch version of :func:`compact_table`, on any device: every
+    real row is scattered to its rank, every hole to a spare slot that is
+    dropped."""
+    n = counts.shape[0]
+    real = counts > 0
+    dest = torch.where(real, torch.cumsum(real, 0) - 1, n)
+    out_k = torch.full((*keys.shape[:-1], n + 1), SENTINEL, dtype=torch.int64, device=keys.device)
+    out_c = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
+    out_k.scatter_(-1, dest.expand_as(keys), keys)
+    out_c.scatter_(0, dest, torch.where(real, counts, 0))
+    return out_k[..., :n], out_c[:n]
+
+
+@functools.cache
+def _merge_kernel():
+    v = ctypes.c_void_p
+    ll = ctypes.c_longlong
+    return _build.kernel("k9_merge_tables", (v, v, ll, v, v, ll, v, v, v))
+
+
+@functools.cache
+def _compact_kernel():
+    v = ctypes.c_void_p
+    return _build.kernel(
+        "k10_compact_table", (v, v, ctypes.c_longlong, ctypes.c_int, v, v, v, v)
+    )
+
+
+@functools.cache
+def _compact_scratch_elems():
+    """K10's scratch size for n rows, from the kernel source that owns the
+    tile size."""
+    fn = _build.library().k10_scratch_elems
+    fn.argtypes = [ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _route(name: str, tensors) -> bool:
+    """Check the wrapper's tensors; True when they lie on a CUDA device
+    (launch the kernel), False on the CPU (take the plain version)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name} takes int64 tensors")
+        if t.device != dev:
+            raise ValueError(f"{name} takes tensors on one device")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    return True
+
+
+def merge_tables(keys_a, counts_a, keys_b, counts_b):
+    """Merge two count tables whose 1-D int64 ``keys`` are sorted
+    ascending (padding rows, if any, only at the tail).
+
+    Returns ``(keys, counts)`` of length ``len(keys_a) + len(keys_b)``,
+    sorted by key, A's row first on equal keys.  Nothing is summed (the
+    caller's weighted RLE does that).  A CUDA tensor launches K9; a CPU
+    tensor takes :func:`merge_tables_plain`.
+    """
+    tensors = (keys_a, counts_a, keys_b, counts_b)
+    if any(t.dim() != 1 for t in tensors) or keys_a.shape != counts_a.shape \
+            or keys_b.shape != counts_b.shape:
+        raise ValueError("merge_tables takes two tables of 1-D keys and counts of one length")
+    if not _route("merge_tables", tensors):
+        return merge_tables_plain(*tensors)
+    na, nb = keys_a.shape[0], keys_b.shape[0]
+    keys = torch.empty(na + nb, dtype=torch.int64, device=keys_a.device)
+    counts = torch.empty_like(keys)
+    if na + nb:
+        with torch.cuda.device(keys.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = _merge_kernel()(
+                keys_a.data_ptr(), counts_a.data_ptr(), na, keys_b.data_ptr(),
+                counts_b.data_ptr(), nb, keys.data_ptr(), counts.data_ptr(), stream,
+            )
+        _build.check(code, "k9_merge_tables")
+        merge_tables.launches += 1
+    return keys, counts
+
+
+def compact_table(keys, counts):
+    """Front-pack the real rows (``counts > 0``) of a count table.
+
+    ``keys`` is int64 ``(n,)`` or ``(W, n)``, ``counts`` int64 ``(n,)``.
+    Returns ``(keys, counts)`` of the input's shapes: the real rows in
+    order, then :data:`~kmers_tpu_torch.convert.SENTINEL` in every word and
+    count 0.  A CUDA tensor launches K10 (three launches under one entry
+    point, counted once); a CPU tensor takes :func:`compact_table_plain`.
+    """
+    if counts.dim() != 1 or keys.dim() not in (1, 2) or keys.shape[-1] != counts.shape[0]:
+        raise ValueError("compact_table takes keys (n,) or (W, n) and counts (n,)")
+    if not _route("compact_table", (keys, counts)):
+        return compact_table_plain(keys, counts)
+    n = counts.shape[0]
+    out_k = torch.empty_like(keys)
+    out_c = torch.empty_like(counts)
+    if n:
+        words = 1 if keys.dim() == 1 else keys.shape[0]
+        scratch = torch.empty(
+            _compact_scratch_elems()(n), dtype=torch.int64, device=counts.device
+        )
+        with torch.cuda.device(counts.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = _compact_kernel()(
+                keys.data_ptr(), counts.data_ptr(), n, words, scratch.data_ptr(),
+                out_k.data_ptr(), out_c.data_ptr(), stream,
+            )
+        _build.check(code, "k10_compact_table")
+        compact_table.launches += 1
+    return out_k, out_c
+
+
+#: wrapper calls in this process that launched their kernel (K10's three
+#: launches count once)
+merge_tables.launches = 0
+compact_table.launches = 0

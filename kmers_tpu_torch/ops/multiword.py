@@ -12,7 +12,9 @@ least significant word first.  The sorted columns then get run ids, a
 sorted int64 stream (:data:`SENTINEL` for the invalid run), so the
 one-word machinery counts them: kernel K2 (``rle_unit``) for a chunk and
 the weighted ``_run_length_encode`` of ``ops/count.py`` for a merge.
-``ops/count.py::compact_counts`` front-packs word tables as well.
+``ops/count.py::compact_counts`` (kernel K10) front-packs word tables as
+well, every word plane with its column.  Word tables merge by this sort,
+not by kernel K9, whose keys are one word.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """End-to-end workloads of the port: canonical k-mer counting
-(1 <= K <= 100) and composition vectors, MinHash sketching, k-mer
+(1 <= K <= 100), streamed counting of inputs larger than memory, the
+count-table algebra and composition vectors, MinHash sketching, k-mer
 extraction (every k-mer, spaced, minimizers, closed syncmers), and
 six-frame amino-acid k-mer counting (1 <= K <= 32)."""
 
@@ -16,6 +17,16 @@ from .canonical_count import (
 from .extract import extract_kmers, minimizer_select, spaced_kmers, syncmer_select
 from .minhash import StreamingSketcher, jaccard, minhash_sketch, sketch_fastx_stream
 from .sixframe import SixFrameCountConfig, sixframe_aa_count
+from .streaming import StreamingCounter, count_fastx_stream
+from .tables import (
+    containment,
+    intersect_counts,
+    jaccard_exact,
+    merge_counts,
+    merge_counts_device,
+    multiplicity_spectrum,
+    subtract_counts,
+)
 
 __all__ = [
     "CountConfig",
@@ -36,4 +47,13 @@ __all__ = [
     "syncmer_select",
     "SixFrameCountConfig",
     "sixframe_aa_count",
+    "StreamingCounter",
+    "count_fastx_stream",
+    "merge_counts",
+    "intersect_counts",
+    "subtract_counts",
+    "multiplicity_spectrum",
+    "merge_counts_device",
+    "jaccard_exact",
+    "containment",
 ]

@@ -1,6 +1,18 @@
-"""The chunk loop shared by the counting pipelines (canonical and
-six-frame): overlapping chunks of one uploaded buffer, each counted into
-a table, folded on the device through a level stack of merges."""
+"""The chunk loop shared by the counting pipelines (canonical, six-frame
+and streaming): overlapping chunks of one uploaded buffer, each counted
+into a table, front-packed, and folded on the device through a level stack
+of merges.
+
+The merge (``merge_compact_tables``: kernel K9, the weighted RLE, kernel
+K10; or its multi-word form) takes two *sorted* tables, with padding rows
+only at the tail.  A chunk's own table is sentinel-interspersed (padding
+between its real rows), so every table pushed on a level stack is
+front-packed by ``compact_counts`` (K10) first.  The one-chunk shortcut of
+:func:`count_stream` returns a chunk's table as it is, interspersed; such a
+table must never feed a level stack, since K9 would then merge an unsorted
+input.  :func:`push_chunks`, which a caller with its own stack uses, has no
+shortcut.
+"""
 
 from __future__ import annotations
 
@@ -10,36 +22,39 @@ from ..ops.count import compact_counts
 from ..utils.levelstack import LevelStack
 from ..utils.streamq import DrainQueue
 
-__all__ = ["count_stream"]
+__all__ = ["count_stream", "level_stack", "push_chunks"]
 
 
-def count_stream(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, merge):
-    """Count the overlapping chunks of ``buf`` and fold their tables.
+def _starts(n: int, span: int, chunk_size: int) -> range:
+    # consecutive chunks share span - 1 bytes
+    return range(0, max(n - span + 1, 1), chunk_size - (span - 1))
 
-    ``span`` is the bytes a window covers (K for nucleotides, 3K for
-    amino acids); consecutive chunks share ``span - 1`` bytes, so no
-    window is lost at a boundary, and each chunk sentinels its own windows
-    that run past its end, so none is counted twice.  ``count_chunk(view)``
-    gives ``((keys, counts), scalars)`` with ``scalars[0]`` the distinct
-    count; ``merge(ka, ca, kb, cb)`` gives a front-packed ``(keys, counts,
-    n_unique)``.  Keys are ``(n,)`` or ``(W, n)``.  Returns ``(table,
-    tallies)``: the table (interspersed when there was one chunk) and the
-    sums of ``scalars[1:]`` as ints.
-    """
-    starts = range(0, max(buf.shape[0] - span + 1, 1), chunk_size - (span - 1))
-    if len(starts) == 1:
-        # one chunk: no compaction, no merge; the final mask drops padding
-        table, scalars = count_chunk(buf)
-        return table, scalars.tolist()[1:]
 
-    tallies = None
+def level_stack(merge) -> LevelStack:
+    """A level stack of front-packed ``(keys, counts)`` tables folded by
+    ``merge(ka, ca, kb, cb) -> (keys, counts, n_unique)``; each merged
+    table is cut to its ``n_unique`` live rows (one host round trip)."""
 
     def _slice(out):
         keys, counts, n_unique = out
-        nu = int(n_unique)  # the merge's one host round trip
+        nu = int(n_unique)
         return keys[..., :nu], counts[:nu]
 
-    stack = LevelStack(lambda a, b: merge(*a, *b), _slice)
+    return LevelStack(lambda a, b: merge(*a, *b), _slice)
+
+
+def push_chunks(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, stack) -> list:
+    """Count the overlapping chunks of ``buf`` and push each table,
+    front-packed and cut to its distinct rows, on ``stack``.
+
+    ``span`` is the bytes a window covers (K for nucleotides, 3K for
+    amino acids); each chunk sentinels its own windows that run past its
+    end, so no window is lost at a boundary or counted twice.
+    ``count_chunk(view)`` gives ``((keys, counts), scalars)`` with
+    ``scalars[0]`` the distinct count.  Returns the sums of
+    ``scalars[1:]`` as ints.
+    """
+    tallies = None
 
     def _drain(out, values):
         nonlocal tallies
@@ -49,7 +64,22 @@ def count_stream(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, mer
         stack.push((keys[..., :nu], counts[:nu]))
 
     queue = DrainQueue(_drain)
-    for start in starts:
+    for start in _starts(buf.shape[0], span, chunk_size):
         queue.push(*count_chunk(buf[start : start + chunk_size]))
     queue.flush()
+    return tallies
+
+
+def count_stream(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, merge):
+    """Count the chunks of ``buf`` (see :func:`push_chunks`) and fold
+    their tables with ``merge``.  Keys are ``(n,)`` or ``(W, n)``.
+    Returns ``(table, tallies)``: the table (interspersed when there was
+    one chunk) and the sums of ``scalars[1:]`` as ints.
+    """
+    if len(_starts(buf.shape[0], span, chunk_size)) == 1:
+        # one chunk: no compaction, no merge; the final mask drops padding
+        table, scalars = count_chunk(buf)
+        return table, scalars.tolist()[1:]
+    stack = level_stack(merge)
+    tallies = push_chunks(buf, span, chunk_size, count_chunk, stack)
     return stack.fold(), tallies

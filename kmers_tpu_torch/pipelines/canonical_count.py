@@ -22,6 +22,7 @@ switch.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -48,7 +49,13 @@ __all__ = [
     "composition_vector",
     "counts_lookup",
     "counts_to_dict",
+    "bench",
 ]
+
+#: the headline metric's single-core CPU baseline (bases/s), as in the
+#: JAX package's ``bench`` command
+BENCH_BASELINE = 5.0e7
+
 
 @dataclasses.dataclass(frozen=True)
 class CountConfig:
@@ -79,7 +86,12 @@ class CountConfig:
 
 def _count_chunk(chunk: torch.Tensor, K: int, track: bool):
     """One K <= 31 chunk: ``((uniq, counts), scalars)`` with ``scalars``
-    the int64 tensor ``[n_unique, n_invalid, n_ambig(, n_valid, n_counted)]``."""
+    the int64 tensor ``[n_unique, n_invalid, n_ambig(, n_valid, n_counted)]``.
+
+    The counterpart of the JAX ``_chunk_count`` on both its routes: the
+    TPU kernel K7 (``canonical_windows_bytes_flat_pallas``, raw bytes to
+    registers in a relabelled order plus byte counters) computes K1's
+    function up to a bijective order, so K1 serves it here."""
     keys, n_invalid, n_ambig = canonical_windows(chunk, K)
     uniq, counts, n_unique = sort_count(keys, key_bits=2 * K)
     scalars = [n_unique, n_invalid, n_ambig]
@@ -188,6 +200,35 @@ def _canonical_count_multiword(data, config: CountConfig, device):
     keep = acc[1] > 0
     words = acc[0][:, keep].cpu().numpy()
     return words_to_ints(words), acc[1][keep].cpu().numpy()
+
+
+def bench_input(L: int = 1 << 26) -> np.ndarray:
+    """The bytes :func:`bench` counts: L bytes drawn from ACGT by
+    ``np.random.default_rng(0)``, as the JAX CLI's ``bench`` draws them."""
+    rng = np.random.default_rng(0)
+    return np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, L)]
+
+
+def bench(L: int = 1 << 26, device="cuda") -> dict:
+    """The headline throughput benchmark of the JAX CLI's ``bench``: the
+    31-mers of :func:`bench_input`, uploaded once, counted as one chunk
+    (K1, ``torch.sort``, K2) once to warm up and then three times, each
+    call ended by fetching its distinct count.  Returns the line the CLI
+    prints: ``{"metric", "value", "unit", "vs_baseline"}``."""
+    K = 31
+    device = resolve_device(device)
+    buf = torch.tensor(bench_input(L), dtype=torch.uint8, device=device)
+    int(_count_chunk(buf, K, False)[1][0])
+    t0 = time.perf_counter()
+    for _ in range(3):
+        int(_count_chunk(buf, K, False)[1][0])
+    dt = (time.perf_counter() - t0) / 3
+    return {
+        "metric": "canonical_31mer_count_bases_per_sec_per_chip",
+        "value": round(L / dt),
+        "unit": "bases/sec",
+        "vs_baseline": round(L / dt / BENCH_BASELINE, 3),
+    }
 
 
 def canonical_count(data, K: int = 31, skip_ambiguous: bool = True, device="cuda"):

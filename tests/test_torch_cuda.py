@@ -10,6 +10,12 @@ import torch
 
 from kmers_tpu_torch.convert import SENTINEL
 from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
+from kmers_tpu_torch.ops.kernels.merge_kernel import (
+    compact_table,
+    compact_table_plain,
+    merge_tables,
+    merge_tables_plain,
+)
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
 from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
 from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
@@ -33,6 +39,8 @@ from kmers_tpu_torch.pipelines.canonical_count import (
     composition_vector,
 )
 from kmers_tpu_torch.pipelines.sixframe import SixFrameCountConfig, sixframe_aa_count
+from kmers_tpu_torch.pipelines.streaming import StreamingCounter
+from kmers_tpu_torch.pipelines.tables import merge_counts_device
 
 pytestmark = pytest.mark.cuda
 
@@ -123,8 +131,11 @@ def test_slice_on_cuda_matches_cpu(cuda):
     data = _bytes(1_000_000, 11)
     cfg = CountConfig(K=31, chunk_size=1 << 18)
     k0, w0 = canonical_windows.launches, rle_unit.launches
+    m0, c0 = merge_tables.launches, compact_table.launches
     got = canonical_count_bytes(data, cfg, device="cuda")
     assert canonical_windows.launches - k0 == 4 and rle_unit.launches - w0 == 4
+    # the fold: 4 chunk compactions, 3 merges of one K9 and one K10 each
+    assert merge_tables.launches - m0 == 3 and compact_table.launches - c0 == 7
     want = canonical_count_bytes(data, cfg, device="cpu")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
@@ -345,3 +356,105 @@ def test_sixframe_slice_on_cuda_matches_cpu(cuda, K):
     want = sixframe_aa_count(data, cfg, device="cpu")
     assert got[0].dtype == want[0].dtype and got[0].tolist() == want[0].tolist()
     assert np.array_equal(got[1], want[1])
+
+
+def _merge_cases():
+    rng = np.random.default_rng(9)
+    tile = 2048  # outputs a K9 block owns (csrc/merge_kernel.cu kMergeTile)
+
+    def table(keys, seed):
+        keys = torch.as_tensor(keys, dtype=torch.int64)
+        counts = torch.from_numpy(np.random.default_rng(seed).integers(1, 1 << 40, keys.numel()))
+        return keys, counts
+
+    def sentinel_tail(keys, n_tail):
+        keys = torch.as_tensor(keys, dtype=torch.int64).clone()
+        keys[keys.numel() - n_tail :] = SENTINEL
+        return keys
+
+    # every key repeated across both tables, so ties straddle every block
+    # boundary; counts tell A's rows from B's
+    dup_a = torch.repeat_interleave(torch.arange(10), 1000)
+    dup_b = torch.repeat_interleave(torch.arange(10), 700)
+    uniq_a = torch.sort(torch.from_numpy(rng.integers(0, 1 << 62, 33_333))).values
+    uniq_b = torch.sort(torch.from_numpy(rng.integers(0, 1 << 62, 14_001))).values
+    # equal keys exactly at the block boundaries
+    edge = torch.arange(3 * tile) // 2
+    empty = torch.zeros(0, dtype=torch.int64)
+    return {
+        "heavy duplication": (table(dup_a, 1), table(dup_b, 2)),
+        "ties at block edges": (table(edge[::2], 3), table(edge[1::2], 4)),
+        "a empty": (table(empty, 5), table(uniq_b, 6)),
+        "b empty": (table(uniq_a, 7), table(empty, 8)),
+        "both empty": (table(empty, 9), table(empty, 10)),
+        "one row each": (table([5], 11), table([5], 12)),
+        "one and many": (table([1 << 40], 13), table(uniq_b, 14)),
+        "unequal lengths": (table(uniq_a, 15), table(uniq_b, 16)),
+        "sentinel tail a": (table(sentinel_tail(uniq_a, 500), 17), table(uniq_b, 18)),
+        "sentinel tail b": (table(uniq_a, 19), table(sentinel_tail(uniq_b, 3), 20)),
+        "sentinel tails": (table(sentinel_tail(dup_a, 2500), 21), table(sentinel_tail(uniq_b, 14_001), 22)),
+        "odd lengths": (table(uniq_a[: tile + 1], 23), table(uniq_b[: 3 * tile - 1], 24)),
+    }
+
+
+MERGE_CASES = list(_merge_cases())
+
+
+@pytest.mark.parametrize("name", MERGE_CASES)
+def test_merge_kernel_matches_plain(cuda, name):
+    (ka, ca), (kb, cb) = _merge_cases()[name]
+    before = merge_tables.launches
+    got = merge_tables(ka.to(cuda), ca.to(cuda), kb.to(cuda), cb.to(cuda))
+    torch.cuda.synchronize()
+    assert merge_tables.launches == before + (1 if ka.numel() + kb.numel() else 0)
+    _assert_same(got, merge_tables_plain(ka, ca, kb, cb))
+
+
+@pytest.mark.parametrize("words", [1, 2, 5])
+@pytest.mark.parametrize("n,share", [(0, 0.5), (1, 1.0), (1, 0.0), (2047, 0.5), (2048, 0.9),
+                                     (2049, 0.1), (1 << 20, 0.5), ((1 << 20) + 3, 1.0), (300_001, 0.0)])
+def test_compact_kernel_matches_plain(cuda, words, n, share):
+    rng = np.random.default_rng(n + words)
+    shape = (n,) if words == 1 else (words, n)
+    keys = torch.from_numpy(rng.integers(0, 1 << 62, shape))
+    counts = torch.from_numpy(np.where(rng.random(n) < share, rng.integers(1, 1 << 40, n), 0))
+    before = compact_table.launches
+    got = compact_table(keys.to(cuda), counts.to(cuda))
+    torch.cuda.synchronize()
+    assert compact_table.launches == before + (1 if n else 0)
+    _assert_same(got, compact_table_plain(keys, counts))
+
+
+def test_streaming_counter_on_cuda_matches_cpu(cuda):
+    out = []
+    for dev in ("cuda", "cpu"):
+        sc = StreamingCounter(CountConfig(K=25, chunk_size=1 << 14), device=dev)
+        for seed in (1, 2, 3):
+            seq = _bytes(50_000, seed)
+            seq[seq == ord("X")] = ord("T")
+            sc.update(seq, np.array([0, 100, 20_000, 20_001, 50_000]))
+        sc.update(_bytes(5_000, 4).clip(65, 65))  # one chunk of 'A'
+        out.append(sc.finalize())
+    assert all(np.array_equal(g, w) for g, w in zip(*out))
+
+
+def test_merge_counts_device_on_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(12)
+    a = np.unique(rng.integers(0, 1 << 62, 300_000)).astype(np.uint64)
+    b = np.unique(np.concatenate([a[::3], rng.integers(0, 1 << 62, 100_000).astype(np.uint64)]))
+    ac = rng.integers(1, 1 << 40, a.size)
+    bc = rng.integers(1, 1 << 40, b.size)
+    before = merge_tables.launches, compact_table.launches
+    got = merge_counts_device(a, ac, b, bc, device="cuda")
+    assert (merge_tables.launches, compact_table.launches) == (before[0] + 1, before[1] + 1)
+    want = merge_counts_device(a, ac, b, bc, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_bench_on_cuda(cuda):
+    from kmers_tpu_torch.pipelines.canonical_count import bench
+
+    before = canonical_windows.launches
+    line = bench(L=1 << 20, device="cuda")
+    assert canonical_windows.launches - before == 4
+    assert line["metric"] == "canonical_31mer_count_bases_per_sec_per_chip" and line["value"] > 0

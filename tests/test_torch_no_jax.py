@@ -1,9 +1,10 @@
 """The port never imports jax, nor anything of the JAX package
 ``kmers_tpu``: a fresh interpreter imports ``kmers_tpu_torch``, runs the
 counting path (K = 7 and K = 40), minhash sketching, extraction,
-minimizers, six-frame counting (K = 7 and K = 15) and the CLI's ``count``,
-``sketch`` and ``sixframe`` on the CPU, and finds neither in
-``sys.modules``; and no source of the port or of
+minimizers, six-frame counting (K = 7 and K = 15), a ``StreamingCounter``,
+``merge_counts_device``, ``bench`` at a small L and the CLI's ``count``
+(also with ``--stream``), ``sketch`` and ``sixframe`` on the CPU, and
+finds neither in ``sys.modules``; and no source of the port or of
 ``chip_smoke.py`` has such an import."""
 
 import json
@@ -30,6 +31,7 @@ SCRIPT = f"""
 import json, sys
 import kmers_tpu_torch
 from kmers_tpu_torch.__main__ import main
+from kmers_tpu_torch.pipelines.canonical_count import bench
 kmers, counts = kmers_tpu_torch.canonical_count_bytes(
     {DATA!r}, kmers_tpu_torch.CountConfig(K=7, chunk_size=100), device="cpu",
 )
@@ -45,7 +47,13 @@ aa7, aa_counts7 = kmers_tpu_torch.sixframe_aa_count(
 aa15, aa_counts15 = kmers_tpu_torch.sixframe_aa_count(
     {DATA_AA!r}, kmers_tpu_torch.SixFrameCountConfig(K=15, chunk_size=100), device="cpu",
 )
+sc = kmers_tpu_torch.StreamingCounter(kmers_tpu_torch.CountConfig(K=7, chunk_size=100), device="cpu")
+sc.update({DATA!r})
+streamed, streamed_counts = sc.finalize()
+merged, merged_counts = kmers_tpu_torch.merge_counts_device(kmers, counts, streamed, streamed_counts, device="cpu")
+line = bench(L=1 << 12, device="cpu")
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--device", "cpu"])
+main(["count", sys.argv[1], "-k", "5", "--top", "1", "--stream", "--device", "cpu"])
 main(["sketch", sys.argv[1], "-k", "5", "-s", "3", "--device", "cpu"])
 main(["sixframe", sys.argv[1], "-k", "2", "--device", "cpu"])
 print(json.dumps({{
@@ -56,6 +64,9 @@ print(json.dumps({{
     "minimizers": bool(mins.size),
     "aa7": int(aa_counts7.sum()),
     "aa15": int(aa_counts15.sum()),
+    "streamed": int(streamed_counts.sum()),
+    "merged": int(merged_counts.sum()),
+    "bench": sorted(line),
     "jax": "jax" in sys.modules,
     "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu"),
 }}))
@@ -72,17 +83,20 @@ def test_port_runs_without_importing_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
-    # the CLI's top line, its sketch (a header and three hashes), its
-    # six-frame totals, then the script's result
-    assert len(lines) == 7 and lines[1] == "#kmers_tpu sketch k=5 s=3"
+    # the CLI's top lines (loaded, then streamed), its sketch (a header and
+    # three hashes), its six-frame totals, then the script's result
+    assert len(lines) == 8 and lines[0] == lines[1] and lines[2] == "#kmers_tpu sketch k=5 s=3"
     # six-frame windows of 2 amino acids (6 bases) inside each record
-    assert json.loads(lines[5])["total"] == 2 * ((12 - 5) + (7 - 5))
+    assert json.loads(lines[6])["total"] == 2 * ((12 - 5) + (7 - 5))
     assert json.loads(lines[-1]) == {
         "total": TOTAL, "total40": 4 * 30 - 40 + 1, "sketch": 5, "extracted": TOTAL,
         "minimizers": True, "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
-        "jax": False, "kmers_tpu": [],
+        "streamed": TOTAL, "merged": 2 * TOTAL,
+        "bench": ["metric", "unit", "value", "vs_baseline"], "jax": False, "kmers_tpu": [],
     }
-    assert json.loads(proc.stderr.strip().splitlines()[-1])["total"] == (12 - 4) + (7 - 4)
+    # the totals of both count commands
+    totals = [json.loads(x) for x in proc.stderr.strip().splitlines()[-2:]]
+    assert totals[0] == totals[1] and totals[0]["total"] == (12 - 4) + (7 - 4)
 
 
 SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
