@@ -27,8 +27,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    ``torch.profiler`` breakdown;
 5. slice K = 47 (multi-word registers, K3): the same chromosome, checks and
    launch counts (K10 only: word tables merge by sorting), a stage
-   breakdown with synchronising timers and a ``torch.profiler`` breakdown
-   with the device's busy share; then a few hundred kb at K = 63 (K3,
+   breakdown with synchronising timers; then a few hundred kb at K = 63 (K3,
    three words) and K = 80 (plain windows) against the numpy reference;
 6. minhash + extract: on the same chromosome, ``minhash_sketch`` at K = 21,
    s = 1000 (K1's hash mode, with a ``torch.profiler`` breakdown) through
@@ -54,7 +53,27 @@ Phases, in order; any failure ends the run with a nonzero exit:
    with its launch counts, rates and a profile; ``merge_counts_device`` of
    the two halves' tables equal to the whole table, with K9's share of its
    time; ``python -m kmers_tpu_torch bench`` (its four-key line); the CLI's
-   ``count --stream`` on a 3-record FASTQ equal to a string counter.
+   ``count --stream`` on a 3-record FASTQ equal to a string counter; the
+   native FASTX scanner required, and the streamed call's host time split
+   by stage (parse, N-join, upload, the drain of each chunk) with the native
+   and with the pure-Python parse, with reads/s and the device's busy share
+   of each;
+9. sort: the sort-wall probe on this card, K1 -> K11 (``bitonic_sort``) ->
+   K2 in place of K1 -> ``torch.sort`` -> K2, on one 2^20 chunk and on
+   ``bench``'s 2^26-byte chunk, bit-equal to the default route, with both
+   routes' times and K11's device time per launch;
+10. checkpoints: the CLI's ``count -k 31 -o`` of the chromosome loaded back
+   equal to ``canonical_count_bytes``, ``merge`` of the two halves'
+   checkpoints in process (one K9 and one K10 launch) equal to the table of
+   the halves as two records, ``verify`` exiting 0 and, after one changed
+   byte of the input, 1; a K = 47 round trip on 300 kb.
+
+The kernel phase also holds K11 (edge cases at one and two tiles, the local
+pass and the full sort at 2^20 and 2^24 keys, the full sort equal to
+``torch.sort``) and K8b at K = 32 (forward and canonical on the chromosome,
+both planes) against their plain versions, and phase 6 extracts every 32-mer
+of the chromosome (one K8b launch each, forward and canonical) against
+numpy.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON, and the one before that the card's name and
@@ -97,6 +116,9 @@ NCBI_STANDARD = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGG
 AA_CHARS = "ARNDCQEGHILKMFPSTWYVOUBJZX*-"
 #: H100 SXM device memory rate (NVIDIA data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
+#: K11's key counts in the kernel phase (the probe sorts a 2^20 chunk and
+#: bench's 2^26-byte chunk)
+SORT_SHAPES = (1 << 20, 1 << 24)
 WORD_BITS = 62
 #: FxHash's multiplier (a hash of a one-word register is reg * FX mod 2^64)
 FX = np.uint64(0x517CC1B727220A95)
@@ -385,14 +407,15 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
     of work.  Only device events that start inside the ``timed calls``
     range are counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from kmers_tpu_torch.utils.profiling import annotate, trace
+
+    with trace(None) as prof:
         torch.ones(1, device="cuda").add_(1)
         if warm:
             fn()
         torch.cuda.synchronize()
-        with record_function("timed calls"):
+        with annotate("timed calls"):
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
@@ -421,7 +444,11 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
     categories = collections.Counter()
     for name, (_, secs) in per_name.items():
         low = name.lower()
-        if "merge_tables_kernel" in name:
+        if "bitonic_" in name:
+            cat = "K11 bitonic_local_sort / bitonic_sort"
+        elif "windows_k32_kernel" in name:
+            cat = "K8b windows_k32"
+        elif "merge_tables_kernel" in name:
             cat = "K9 merge_tables"
         elif "compact_" in name and "_kernel" in name:
             cat = "K10 compact_table"
@@ -452,10 +479,11 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
 
 
 @contextlib.contextmanager
-def stage_timers(targets):
+def stage_timers(targets, sync: bool = True):
     """Wrap ``module.<name>`` for each ``(module, name)`` of ``targets``
-    with synchronising timers; yields {name: seconds} and restores the
-    modules on exit."""
+    (a module or a class) with timers, synchronising the device around each
+    call unless ``sync`` is false (host time only); yields {name: seconds}
+    and restores the targets on exit."""
     import torch
 
     secs = collections.Counter()
@@ -463,10 +491,12 @@ def stage_timers(targets):
 
     def timed(name, fn):
         def run(*args, **kwargs):
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             secs[name] += time.perf_counter() - t0
             return out
         return run
@@ -578,7 +608,12 @@ def phase_kernels(chrom: np.ndarray):
 
     from kmers_tpu_torch.convert import SENTINEL, n_words
     from kmers_tpu_torch.ops.encode import classify_2bit
-    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
+    from kmers_tpu_torch.ops.kernels.general_kernel import (
+        windows_general,
+        windows_general_plain,
+        windows_k32,
+        windows_k32_plain,
+    )
     from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
     from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
     from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
@@ -678,6 +713,26 @@ def phase_kernels(chrom: np.ndarray):
     gen_plain_ms = median_ms(lambda: windows_general_plain(codes, certain, K, 2, False))
     log(f"[kernels] K6 on {chrom.size} symbols, bps=2, K={K}: kernel {gen_ms:.4f} ms, "
         f"plain {gen_plain_ms:.4f} ms")
+
+    # K8b at K = 32: the same codes, forward and canonical, both planes
+    k32_err = 0.0
+    for canonical in (False, True):
+        got = windows_k32(codes, certain, canonical)
+        want = windows_k32_plain(codes, certain, canonical)
+        require(all(torch_equal(g, w) for g, w in zip(got, want)),
+                f"K8b (K = 32) != plain on the chromosome, canonical={canonical}")
+        n_valid = int(got[1].sum())
+        require(chrom.size // 2 < n_valid < chrom.size - 31, f"K8b valid windows, canonical={canonical}")
+        k32_err = max(k32_err, max_abs_err(got, want))
+        log(f"[kernels] K8b windows_k32 canonical={canonical}: both planes bit-equal to plain on "
+            f"{chrom.size} symbols ({n_valid} valid windows)")
+    del got, want
+    k32_ms = median_ms(lambda: windows_k32(codes, certain, True))
+    k32_plain_ms = median_ms(lambda: windows_k32_plain(codes, certain, True))
+    k32_us = device_us(lambda: windows_k32(codes, certain, True), "windows_k32_kernel")
+    log(f"[kernels] K8b on {chrom.size} symbols, K=32 canonical: kernel {k32_ms:.4f} ms "
+        f"({k32_us:.1f} us of device time), plain {k32_plain_ms:.4f} ms, bound "
+        f"{bound_ms(chrom.size * 11):.4f} ms")
     del whole, codes, certain
 
     k3_err = 0.0
@@ -759,12 +814,23 @@ def phase_kernels(chrom: np.ndarray):
         f"torch.unique_consecutive {k2_lib_ms:.4f} ms")
 
     merge_entry, compact_entry = kernels_fold(clean)
+    local_entry, sort_entry = kernels_sort()
 
     W = n_words(K_MW)
     W_AA = n_words(K_AA_MW, 8)
     return {
         "merge_tables": merge_entry,
         "compact_table": compact_entry,
+        "bitonic_local_sort": local_entry,
+        "bitonic_sort": sort_entry,
+        "windows_k32": dict(
+            route="cuda", source="kmers_tpu_torch/csrc/general_kernel.cu",
+            replaces="kmers_tpu/ops/pallas/window_kernel.py:634",
+            max_abs_err=k32_err, ms=k32_ms, plain_ms=k32_plain_ms,
+            # a uint8 code and a bool flag in, an 8-byte register and a bool out per position
+            bound_ms=bound_ms(chrom.size * (2 + 9)), bound_by="bytes", library_ms=None,
+            device_us=k32_us,
+        ),
         "canonical_windows": dict(
             route="cuda", source="kmers_tpu_torch/csrc/window_kernel.cu",
             replaces="kmers_tpu/ops/pallas/window_kernel.py:518",
@@ -955,6 +1021,96 @@ def kernels_fold(clean):
     return merge_entry, compact_entry
 
 
+def _kernel_label(name: str) -> str:
+    """``bitonic_pass_kernel`` of a profiler name such as
+    ``(anonymous namespace)::bitonic_pass_kernel(long*, long, int, int)``."""
+    return name[name.find("bitonic_"):].split("(")[0]
+
+
+def kernels_sort():
+    """K11 against its plain version on edge cases and at ``SORT_SHAPES``,
+    the full sort also against ``torch.sort``; returns the entries of the
+    local pass and of the full sort for the kernels line."""
+    import torch
+
+    from kmers_tpu_torch.convert import SENTINEL
+    from kmers_tpu_torch.ops import bitonic_local_sort, bitonic_sort
+    from kmers_tpu_torch.ops.kernels.sort_kernel import (
+        DEFAULT_TILE,
+        bitonic_local_sort_plain,
+        bitonic_sort_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    tile = DEFAULT_TILE
+    lo, hi = torch.iinfo(torch.int64).min, torch.iinfo(torch.int64).max
+
+    def rand(n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+
+    keys = rand(2 * tile)
+    extremes = keys.clone()
+    extremes[::97] = lo
+    extremes[5::89] = hi
+    sentinels = keys.clone()
+    sentinels[torch.rand(2 * tile, generator=g, device=dev) < 0.3] = SENTINEL
+    cases = {
+        "n = tile": keys[:tile].contiguous(),
+        "n = 2 tiles": keys,
+        "all equal": torch.full((2 * tile,), 7, dtype=torch.int64, device=dev),
+        "all SENTINEL": torch.full((2 * tile,), SENTINEL, dtype=torch.int64, device=dev),
+        "already sorted": torch.sort(keys).values,
+        "reverse sorted": torch.sort(keys, descending=True).values,
+        "INT64_MIN and INT64_MAX present": extremes,
+        "30 % sentinels": sentinels,
+    }
+    err = 0.0
+    for name, keys in cases.items():
+        got, local = bitonic_sort(keys), bitonic_local_sort(keys, tile)
+        want, want_local = bitonic_sort_plain(keys), bitonic_local_sort_plain(keys, tile)
+        torch.cuda.synchronize()
+        require(torch_equal(got, want) and torch.equal(got, torch.sort(keys).values),
+                f"K11 full sort != plain or torch.sort: {name}")
+        require(torch_equal(local, want_local), f"K11 local pass != plain: {name}")
+        err = max(err, max_abs_err([got, local], [want, want_local]))
+        log(f"[kernels] K11 {name} ({keys.numel()} keys, tile {tile}): local pass and full sort "
+            "bit-equal to plain, full sort equal to torch.sort")
+    for n in SORT_SHAPES:
+        keys = rand(n)
+        got, local = bitonic_sort(keys), bitonic_local_sort(keys, tile)
+        require(torch.equal(local, bitonic_local_sort_plain(keys, tile)), f"K11 local pass != plain at {n}")
+        require(torch.equal(got, bitonic_sort_plain(keys)), f"K11 full sort != plain at {n}")
+        require(torch.equal(got, torch.sort(keys).values), f"K11 full sort != torch.sort at {n}")
+        log(f"[kernels] K11 at {n} keys: local pass (tile {tile}) bit-equal to plain, full sort "
+            "bit-equal to plain and to torch.sort")
+    n = SORT_SHAPES[-1]
+    ms = median_ms(lambda: bitonic_sort(keys))
+    plain_ms = median_ms(lambda: bitonic_sort_plain(keys), reps=5)
+    lib_ms = median_ms(lambda: torch.sort(keys))
+    local_ms = median_ms(lambda: bitonic_local_sort(keys, tile))
+    local_plain_ms = median_ms(lambda: bitonic_local_sort_plain(keys, tile), reps=5)
+    # all tiles ascending: the nearest PyTorch call to the local pass, not the same function
+    seg_ms = median_ms(lambda: torch.sort(keys.view(-1, tile), dim=1))
+    _, _, _, per_name = device_profile(lambda: bitonic_sort(keys), reps=3, warm=True)
+    kernels = {name: v for name, v in per_name.items() if "bitonic_" in name}
+    device_ms = 1e3 * sum(secs for _, secs in kernels.values())
+    log(f"[kernels] K11 at {n} keys: bitonic_sort {ms:.4f} ms ({device_ms:.4f} ms of device time: "
+        + ", ".join(f"{_kernel_label(name)} {calls:g} launches, {1e6 * secs / calls:.1f} us each"
+                    for name, (calls, secs) in kernels.items() if calls)
+        + f"), plain {plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms; local pass {local_ms:.4f} ms, "
+        f"plain {local_plain_ms:.4f} ms, torch.sort of the {n // tile} tiles (all ascending) "
+        f"{seg_ms:.4f} ms; bound {bound_ms(16 * n):.4f} ms")
+    common = dict(route="cuda", source="kmers_tpu_torch/csrc/sort_kernel.cu", max_abs_err=err,
+                  # an 8-byte key read once and written once
+                  bound_ms=bound_ms(16 * n), bound_by="bytes")
+    local_entry = dict(common, replaces="kmers_tpu/ops/pallas/sort_kernel.py:136", ms=local_ms,
+                       plain_ms=local_plain_ms, library_ms=None)
+    sort_entry = dict(common, replaces="kmers_tpu/ops/pallas/sort_kernel.py:147", ms=ms,
+                      plain_ms=plain_ms, library_ms=lib_ms, device_ms=device_ms)
+    return local_entry, sort_entry
+
+
 def _check_cli(chrom: np.ndarray, k: int):
     """The CLI on a 3-record FASTA: totals equal to the numpy reference."""
     L = chrom.size
@@ -1083,7 +1239,7 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
     require(kmers.dtype == object and counts.dtype == np.int64, "K=47 output dtypes")
 
     # where the time goes: synchronising timers around each stage of one
-    # call, then the device's view of another under torch.profiler
+    # call (the device is busy ~4 % of a K = 47 call: PERF.md section 5)
     stages = ["canonical_words", "sort_count_mw", "compact_counts", "merge_compact_tables_mw",
               "words_to_ints"]
     t0 = time.perf_counter()
@@ -1097,15 +1253,6 @@ def phase_slice_mw(chrom: np.ndarray, smi: str):
         + ", ".join(f"{name} {secs[name]:.3f} s" for name in stages)
         + f", rest (upload, drain, mask, download) {rest:.3f} s")
     log(f"[slice K={K_MW}] turning words into Python ints: {secs['words_to_ints']:.3f} s")
-    p_wall, busy, categories, per_name = device_profile(
-        lambda: canonical_count_bytes(chrom, cfg, device="cuda")
-    )
-    log(f"[slice K={K_MW}] profile: {p_wall:.3f} s wall, device busy {busy:.3f} s "
-        f"({100 * busy / p_wall:.1f} % of the call; {smi})")
-    for cat, s in categories.most_common():
-        log(f"[slice K={K_MW}]   {cat}: {1e3 * s:.3f} ms device time")
-    for name, (calls, s) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        log(f"[slice K={K_MW}]   kernel {name[:90]}: {calls:g} calls, {1e3 * s:.3f} ms")
 
     t0 = time.perf_counter()
     ref_w, ref_c = numpy_reference(chrom, K_MW)
@@ -1177,7 +1324,7 @@ def phase_sketch_extract(chrom: np.ndarray, smi: str):
     import torch
 
     from kmers_tpu_torch import extract_kmers, minhash_sketch, minimizer_select, sketch_fastx_stream
-    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general
+    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_k32
     from kmers_tpu_torch.ops.kernels.window_kernel import canonical_hashes
     from kmers_tpu_torch.pipelines import join_records_with_n
     from kmers_tpu_torch.pipelines import minhash as minhash_module
@@ -1244,6 +1391,27 @@ def phase_sketch_extract(chrom: np.ndarray, smi: str):
     log("[extract] values and positions equal to numpy")
     del vals, pos, fw, can, valid
 
+    # 2b. every 32-mer: K8b, the registers and a validity plane (no sentinel
+    # fits a 64-bit register)
+    t0 = time.perf_counter()
+    fw, can, valid = numpy_windows(chrom, 32)
+    ref_s = time.perf_counter() - t0
+    for canonical in (False, True):
+        windows_k32.launches = 0
+        t0 = time.perf_counter()
+        vals, pos = extract_kmers(chrom, K=32, canonical=canonical, device="cuda")
+        wall = time.perf_counter() - t0
+        require(windows_k32.launches == 1, f"extract_kmers K=32 launched K8b {windows_k32.launches} times")
+        launches["windows_k32"] += windows_k32.launches
+        require(vals.dtype == np.uint64 and np.array_equal(vals, (can if canonical else fw)[valid])
+                and np.array_equal(pos, np.flatnonzero(valid)),
+                f"K=32 extraction (canonical={canonical}) differs from numpy")
+        log(f"[extract] extract_kmers K=32 canonical={canonical} on {L} bases: {wall:.4f} s wall, "
+            f"{vals.size} k-mers ({int((vals >> np.uint64(63)).sum())} with the top bit set), "
+            f"windows_k32 launches 1; values and positions equal to numpy (reference in {ref_s:.1f} s; "
+            f"{smi})")
+    del vals, pos, fw, can, valid
+
     # 3. minimizers (minimap2's k and w)
     windows_general.launches = 0
     t0 = time.perf_counter()
@@ -1301,18 +1469,19 @@ def phase_sketch_extract(chrom: np.ndarray, smi: str):
             require(got["jaccard"] == round(want_j, 6), f"CLI dist {got} != numpy jaccard {want_j}")
         log(f"[cli] sketch and dist on two 2 Mb FASTAs: {got}, numpy jaccard {want_j:.6f}")
 
-    # 6. K = 32 through plain torch on the card
+    # 6. K = 32 on 300 kb: minhash through plain torch, extraction through K8b
     part = chrom[L // 3 - 200_000 : L // 3 + 100_000]
-    before = canonical_hashes.launches, windows_general.launches
+    before = canonical_hashes.launches, windows_general.launches, windows_k32.launches
     sk32 = minhash_sketch(part, K=32, s=S_SKETCH, device="cuda")
     vals, pos = extract_kmers(part, K=32, canonical=True, device="cuda")
-    require((canonical_hashes.launches, windows_general.launches) == before, "K=32 launched a kernel")
+    after = canonical_hashes.launches, windows_general.launches, windows_k32.launches
+    require(after == (before[0], before[1], before[2] + 1), f"K=32 launches {before} -> {after}")
     _, can, valid = numpy_windows(part, 32)
     require(np.array_equal(sk32, numpy_sketch(part, 32, S_SKETCH)), "K=32 sketch differs from numpy")
     require(np.array_equal(vals, can[valid]) and np.array_equal(pos, np.flatnonzero(valid)),
             "K=32 extraction differs from numpy")
-    log(f"[k=32] minhash and canonical extraction on {part.size} bases equal to numpy "
-        f"({vals.size} k-mers) through plain torch")
+    log(f"[k=32] minhash (plain torch) and canonical extraction (K8b) on {part.size} bases equal to "
+        f"numpy ({vals.size} k-mers)")
     return launches
 
 
@@ -1495,6 +1664,47 @@ def phase_bench(smi: str) -> dict:
     return launches
 
 
+def stream_host_split(fq: Path, cfg, smi: str) -> None:
+    """Streamed counting of ``fq`` with the native and with the pure-Python
+    parse: each call's host time split by stage with (non-synchronising)
+    timers: the parse (``read_fastx_bytes`` inside ``stream_fastx``), the
+    N-join, the upload, and the drain of each chunk (the one wait for its
+    scalars, then its compaction and the level stack's merges enqueued); then
+    the device's busy share of another call under the profiler.  The native
+    scanner must be built."""
+    from kmers_tpu_torch import count_fastx_stream
+    from kmers_tpu_torch.io import native_available
+    from kmers_tpu_torch.utils.streamq import DrainQueue
+
+    require(native_available(), "the native FASTX scanner did not build")
+    fasta = importlib.import_module("kmers_tpu_torch.io.fasta")
+    streaming = importlib.import_module("kmers_tpu_torch.pipelines.streaming")
+    stages = [(fasta, "read_fastx_bytes"), (streaming, "join_records_with_n"), (streaming, "upload"),
+              (DrainQueue, "_drain_oldest")]
+    label = {"read_fastx_bytes": "parse", "join_records_with_n": "N-join", "upload": "upload",
+             "_drain_oldest": "drain (one sync a chunk)"}
+    available = fasta.native_available
+
+    def run():
+        return count_fastx_stream(fq, cfg, batch_bytes=STREAM_BATCH, device="cuda")
+
+    try:
+        for route, native in (("native", True), ("pure-Python", False)):
+            fasta.native_available = lambda: native
+            t0 = time.perf_counter()
+            with stage_timers(stages, sync=False) as secs:
+                run()
+            wall = time.perf_counter() - t0
+            p_wall, busy, _, _ = device_profile(run)
+            rest = wall - sum(secs.values())
+            log(f"[stream] {route} parse: {wall:.3f} s wall, {READS / wall:.0f} reads/s; host time "
+                + ", ".join(f"{label[name]} {secs[name]:.3f} s" for _, name in stages)
+                + f", rest {rest:.3f} s; profiled call {p_wall:.3f} s, device busy {busy:.3f} s "
+                f"({100 * busy / p_wall:.1f} %; {smi})")
+    finally:
+        fasta.native_available = available
+
+
 def phase_stream(chrom: np.ndarray, smi: str):
     """Streamed counting of a FASTQ read set, the device merge of two
     halves' tables, the ``bench`` path and the CLI's ``count --stream``;
@@ -1534,6 +1744,7 @@ def phase_stream(chrom: np.ndarray, smi: str):
         require_fold_launches(launches, n_chunks, merges=True)
         _log_profile("stream", lambda: count_fastx_stream(fq, cfg, batch_bytes=STREAM_BATCH, device="cuda"),
                      smi, reps=1, warm=False)
+        stream_host_split(fq, cfg, smi)
     t0 = time.perf_counter()
     ref_w, ref_c = numpy_reference(joined, K)
     log(f"[stream] numpy reference of the joined records in {time.perf_counter() - t0:.1f} s: "
@@ -1603,6 +1814,148 @@ def phase_stream(chrom: np.ndarray, smi: str):
     return collections.Counter(launches) + collections.Counter(m_launches) + collections.Counter(bench_launches)
 
 
+def phase_sort(chrom: np.ndarray, smi: str) -> dict:
+    """The sort-wall probe on this card: K1's keys of one 2^20 chunk and of
+    ``bench``'s 2^26-byte chunk sorted by K11 in place of ``torch.sort``
+    before K2, bit-equal to the default route (``sort_count``: ``torch.sort``
+    and K2); both routes' times; returns K11's launches in the probe."""
+    import torch
+
+    from kmers_tpu_torch.ops import bitonic_local_sort, bitonic_sort, sort_count
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows
+
+    cc = importlib.import_module("kmers_tpu_torch.pipelines.canonical_count")
+    shapes = {"one 2^20 chunk": chrom[:CHUNK], "bench's 2^26-byte chunk": cc.bench_input()}
+    keys = {name: canonical_windows(torch.from_numpy(data).to("cuda"), K)[0]
+            for name, data in shapes.items()}
+
+    def probe(k):
+        return rle_unit(bitonic_sort(k))
+
+    bitonic_sort.launches = 0
+    bitonic_local_sort.launches = 0
+    for name, k in keys.items():
+        got, want = probe(k), sort_count(k)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"K1 -> K11 -> K2 differs from K1 -> torch.sort -> K2 on {name}")
+    launches = {"bitonic_sort": bitonic_sort.launches, "bitonic_local_sort": bitonic_local_sort.launches}
+    require(launches == {"bitonic_sort": len(keys), "bitonic_local_sort": len(keys)},
+            f"the probe launched K11 {launches}")
+    for name, k in keys.items():
+        n_unique = int(probe(k)[2])
+        probe_ms = median_ms(lambda: probe(k), reps=10)
+        default_ms = median_ms(lambda: sort_count(k), reps=10)
+        _, _, _, per_name = device_profile(lambda: bitonic_sort(k), reps=2, warm=True)
+        kernels = {n_: v for n_, v in per_name.items() if "bitonic_" in n_}
+        log(f"[sort] probe on {name} ({k.numel()} keys, {n_unique} distinct): K1 keys -> K11 -> K2 "
+            f"{probe_ms:.4f} ms, K1 keys -> torch.sort -> K2 {default_ms:.4f} ms (CUDA events), "
+            f"bit-equal; K11 device time "
+            + ", ".join(f"{_kernel_label(n_)} {calls:g} launches, {1e6 * secs / calls:.1f} us each"
+                        for n_, (calls, secs) in kernels.items() if calls)
+            + f" ({smi})")
+    log(f"[sort] launches during the probe: {launches}")
+    return launches
+
+
+def phase_checkpoint(chrom: np.ndarray, smi: str) -> dict:
+    """Count-table checkpoints: the CLI's ``count -k 31 -o`` of the
+    chromosome loaded back equal to ``canonical_count_bytes``; ``merge`` of
+    the two halves' checkpoints in process (one K9 and one K10 launch) equal
+    to the table of the halves as two records; ``verify`` exiting 0, and 1
+    after one byte of the input changed; a K = 47 round trip on 300 kb.
+    Returns the merge's launches."""
+    import io as std_io
+
+    from kmers_tpu_torch import CountConfig, canonical_count_bytes, canonical_count_records
+    from kmers_tpu_torch.__main__ import main as cli_main
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
+    from kmers_tpu_torch.utils import load_count_table, save_count_table
+
+    def in_process(*args) -> dict:
+        out = std_io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main(list(args))
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    def verify(path) -> tuple:
+        """The CLI's ``verify`` in process: its exit code and its line."""
+        out = std_io.StringIO()
+        code = 0
+        with contextlib.redirect_stdout(out):
+            try:
+                cli_main(["verify", str(path)])
+            except SystemExit as e:
+                code = e.code
+        return code, json.loads(out.getvalue().strip().splitlines()[-1])
+
+    cfg = CountConfig(K=K)
+    L = chrom.size
+    half = L // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fa = tmp / "chrom.fa"
+        _fasta(fa, [chrom])
+        t0 = time.perf_counter()
+        line = json.loads(_cli("count", str(fa), "-k", str(K), "-o", str(tmp / "whole")).strip().splitlines()[-1])
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kmers, counts, k = load_count_table(tmp / "whole")
+        load_s = time.perf_counter() - t0
+        want = canonical_count_bytes(chrom, cfg, device="cuda")
+        require(k == K and np.array_equal(kmers, want[0]) and np.array_equal(counts, want[1]),
+                "the checkpoint of count -o differs from canonical_count_bytes")
+        require(line == {"distinct": int(want[0].size), "total": int(want[1].sum()), "output": str(tmp / "whole")},
+                f"count -o printed {line}")
+        size = sum(p.stat().st_size for p in (tmp / "whole").iterdir())
+        log(f"[checkpoint] python -m kmers_tpu_torch count -k {K} -o on the chromosome: {wall:.3f} s "
+            f"(process start, parse, count, write of {size} bytes), loaded back in {load_s:.3f} s equal to "
+            f"canonical_count_bytes ({kmers.size} distinct)")
+        del kmers, counts, want
+
+        _fasta(tmp / "a.fa", [chrom[:half]])
+        _fasta(tmp / "b.fa", [chrom[half:]])
+        for part in ("a", "b"):
+            in_process("count", str(tmp / f"{part}.fa"), "-k", str(K), "-o", str(tmp / part))
+        merge_tables.launches = 0
+        compact_table.launches = 0
+        t0 = time.perf_counter()
+        line = in_process("merge", str(tmp / "a"), str(tmp / "b"), "-o", str(tmp / "merged"))
+        wall = time.perf_counter() - t0
+        launches = {"merge_tables": merge_tables.launches, "compact_table": compact_table.launches}
+        require(launches == {"merge_tables": 1, "compact_table": 1},
+                f"merge launched {launches}, not one K9 and one K10")
+        kmers, counts, k = load_count_table(tmp / "merged")
+        want = canonical_count_records(chrom, np.array([0, half, L]), cfg, device="cuda")
+        require(k == K and np.array_equal(kmers, want[0]) and np.array_equal(counts, want[1]),
+                "the merge of the halves' checkpoints differs from the table of the halves")
+        require(line["total"] == int(want[1].sum()) and line["distinct"] == int(want[0].size),
+                f"merge printed {line}")
+        log(f"[checkpoint] merge of the halves' checkpoints in process: {wall:.3f} s (load, K9 and K10 "
+            f"on the card, write), launches {launches}; equal to the table of the halves as two records "
+            f"({kmers.size} distinct, spectrum {line['spectrum_1_to_8plus']}; {smi})")
+        del kmers, counts, want
+
+        rc, report = verify(tmp / "whole")
+        require(rc == 0 and report["ok"] and report["inputs_checked"] == 1, f"verify: exit {rc}, {report}")
+        data = bytearray(fa.read_bytes())
+        data[-2] = ord("C") if data[-2] != ord("C") else ord("G")
+        fa.write_bytes(bytes(data))
+        rc_changed, report = verify(tmp / "whole")
+        require(rc_changed == 1 and not report["ok"] and report["inputs_changed"],
+                f"verify after a changed byte: exit {rc_changed}, {report}")
+        log(f"[checkpoint] verify: exit {rc} on the input as counted, exit {rc_changed} after one changed byte")
+
+        part = chrom[L // 3 - 200_000 : L // 3 + 100_000]
+        k47 = canonical_count_bytes(part, CountConfig(K=K_MW), device="cuda")
+        save_count_table(tmp / "k47", *k47, K=K_MW)
+        back = load_count_table(tmp / "k47")
+        require(back[2] == K_MW and back[0].tolist() == k47[0].tolist() and np.array_equal(back[1], k47[1]),
+                "the K = 47 checkpoint round trip differs")
+        log(f"[checkpoint] K={K_MW} round trip on {part.size} bases: {k47[0].size} distinct, equal")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1627,13 +1980,22 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_stream = phase_stream(chrom, smi)
     log(f"[stream] streaming, tables and bench phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_sort = phase_sort(chrom, smi)
+    log(f"[sort] sort phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_checkpoint = phase_checkpoint(chrom, smi)
+    log(f"[checkpoint] checkpoint phase in {time.perf_counter() - t0:.1f} s")
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules if m.split(".")[0] == "kmers_tpu"],
             "the JAX package was imported")
 
     # launches: each kernel's count over the paths that run it
     launches = (collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
-                + launches_sixframe + collections.Counter(launches_stream))
+                + launches_sixframe + collections.Counter(launches_stream)
+                + collections.Counter(launches_sort) + collections.Counter(launches_checkpoint))
+    unused = [name for name in entries if not launches[name]]
+    require(not unused, f"kernels never launched on their paths: {unused}")
     kernels = [
         {"name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
          "launches": launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],

@@ -15,8 +15,8 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
   FxHash, minimizers and syncmers, translation and reverse translation,
   six-frame amino-acid windows, sort-based counting of one- and
   multi-word registers, the device table fold (merge and compaction),
-  and the hand-written CUDA kernels in
-  ``ops.kernels`` (sources in ``csrc/``).
+  the bitonic sort (on no default path), and the hand-written CUDA kernels
+  in ``ops.kernels`` (sources in ``csrc/``).
 - ``pipelines``: canonical k-mer counting for 1 <= K <= 100 and
   composition vectors; streamed counting (``StreamingCounter``,
   ``count_fastx_stream``) and the count-table algebra (``merge_counts``,
@@ -30,8 +30,10 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
   codon-set masks, for translation (``ops.translate_ops``) and reverse
   translation (``ops.revtrans_ops``).
 - ``symbols``, ``kmer``, ``io``: ``EncodeError``, a 2-bit DNA ``Kmer``,
-  and a pure-Python FASTA/FASTQ reader and batch streamer.
-- ``utils``: checked mode, metrics, the level stack and the drain queue.
+  and a FASTA/FASTQ reader and batch streamer (a native C++ scanner built
+  by g++ at first use, pure Python where it cannot be built).
+- ``utils``: checked mode, metrics, the level stack, the drain queue,
+  count-table checkpoints and profiling hooks.
 
 Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on
 ``"cpu"`` their plain torch versions.

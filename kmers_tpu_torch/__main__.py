@@ -1,11 +1,19 @@
 """Command-line front-end: ``python -m kmers_tpu_torch count reads.fa``.
 
-The port's counterpart of ``python -m kmers_tpu`` for the commands
-``count`` (with ``--stream``), ``sketch``, ``dist``, ``sixframe`` (on one
-device) and ``bench``: the same lines on stdout and stderr.  Every command
-takes ``--device`` (``cuda``, the default, or ``cpu``).  ``count -o`` and
-the ``merge`` and ``verify`` commands need the count-table checkpoints of
-``utils/checkpoint.py``, which are not ported yet.
+The port's counterpart of ``python -m kmers_tpu``, with the same lines on
+stdout and stderr and the same exit codes:
+
+- ``count``: canonical K-mer counting of a FASTA/FASTQ file (``--stream``
+  for record batches, ``-o DIR`` to write a count-table checkpoint);
+- ``merge``: merge count-table checkpoints (counts sum; K <= 31 tables on
+  the device through kernels K9 and K10, K > 31 tables on the host);
+- ``verify``: check a checkpoint's recorded inputs (size and sha256);
+- ``sketch``, ``dist``: MinHash sketches and Mash distances;
+- ``sixframe``: six-frame amino-acid K-mer counting (on one device);
+- ``bench``: the headline throughput benchmark.
+
+Every command that computes takes ``--device`` (``cuda``, the default, or
+``cpu``).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ def cmd_count(args):
     from .io import read_fastx
     from .kmer import Kmer
     from .pipelines.canonical_count import CountConfig, canonical_count_records
-    from .utils import Metrics, checked
+    from .utils import Metrics, checked, save_count_table
 
     m = Metrics() if args.metrics else None
     ctx = checked() if args.checked else contextlib.nullcontext()
@@ -46,6 +54,12 @@ def cmd_count(args):
             )
     if m is not None:
         print(m.dump(), file=sys.stderr)
+    if args.output:
+        # the inputs' sizes and hashes go into the manifest, for `verify`
+        save_count_table(args.output, kmers, counts, K=args.k, inputs=[args.input])
+        print(json.dumps({"distinct": int(kmers.size), "total": int(counts.sum()),
+                          "output": args.output}))
+        return
     top = np.argsort(counts)[::-1][: args.top]
     for i in top:
         k = Kmer.unsafe(args.k, int(kmers[i]))
@@ -54,6 +68,53 @@ def cmd_count(args):
         json.dumps({"distinct": int(kmers.size), "total": int(counts.sum())}),
         file=sys.stderr,
     )
+
+
+def cmd_merge(args):
+    from .pipelines.tables import merge_counts, merge_counts_device, multiplicity_spectrum
+    from .utils import load_count_table, save_count_table
+
+    kmers, counts, K = load_count_table(args.inputs[0])
+    for d in args.inputs[1:]:
+        k2, c2, K2 = load_count_table(d)
+        if K2 != K:
+            raise SystemExit(f"K mismatch: {d} has K={K2}, expected {K}")
+        if K <= 31:
+            kmers, counts = merge_counts_device(kmers, counts, k2, c2, device=args.device)
+        else:
+            kmers, counts = merge_counts(kmers, counts, k2, c2)
+    save_count_table(args.output, kmers, counts, K=K)
+    spec = multiplicity_spectrum(counts, max_multiplicity=8)
+    print(json.dumps({
+        "distinct": int(kmers.size), "total": int(counts.sum()),
+        "spectrum_1_to_8plus": spec[1:].tolist(), "output": args.output,
+    }))
+
+
+def cmd_verify(args):
+    """Deterministic-rerun check: hash the checkpoint's recorded inputs
+    again and compare; exit 1 when any changed."""
+    from .utils import input_manifest_entry, load_count_table
+
+    kmers, counts, K, manifest = load_count_table(args.checkpoint, return_manifest=True)
+    entries = manifest.get("inputs", [])
+    if not entries:
+        raise SystemExit("checkpoint records no input manifest")
+    bad = []
+    for want in entries:
+        try:
+            got = input_manifest_entry(want["path"])
+        except OSError as e:
+            bad.append({"path": want["path"], "error": str(e)})
+            continue
+        if got["sha256"] != want["sha256"] or got["bytes"] != want["bytes"]:
+            bad.append({"path": want["path"], "expected": want, "found": got})
+    print(json.dumps({
+        "checkpoint": args.checkpoint, "K": K, "distinct": int(kmers.size),
+        "inputs_checked": len(entries), "inputs_changed": bad, "ok": not bad,
+    }))
+    if bad:
+        raise SystemExit(1)
 
 
 def _sketch_file(path, args):
@@ -146,6 +207,7 @@ def main(argv=None):
     c = sub.add_parser("count", help="canonical K-mer counting (1 <= K <= 100)")
     c.add_argument("input")
     c.add_argument("-k", type=int, default=31)
+    c.add_argument("-o", "--output", help="count-table checkpoint directory")
     c.add_argument("--top", type=int, default=10, help="print N most frequent")
     c.add_argument(
         "--metrics", action="store_true",
@@ -162,6 +224,20 @@ def main(argv=None):
     )
     c.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     c.set_defaults(fn=cmd_count)
+
+    vr = sub.add_parser(
+        "verify",
+        help="check a checkpoint's recorded inputs (size + sha256) so a rerun is known to "
+        "see identical data",
+    )
+    vr.add_argument("checkpoint", help="count-table checkpoint directory")
+    vr.set_defaults(fn=cmd_verify)
+
+    mg = sub.add_parser("merge", help="merge count-table checkpoints (counts sum)")
+    mg.add_argument("inputs", nargs="+", help="checkpoint directories")
+    mg.add_argument("-o", "--output", required=True)
+    mg.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    mg.set_defaults(fn=cmd_merge)
 
     s = sub.add_parser("sketch", help="MinHash sketch")
     s.add_argument("input")

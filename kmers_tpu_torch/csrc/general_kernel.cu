@@ -34,6 +34,17 @@
 // - bps and the canonical flag are template parameters: five kernels, one
 //   source.  Rolling the register over several positions per thread is
 //   left to a later change.
+//
+// K8b at K = 32 (windows_k32_kernel, forward or canonical at 2 bits):
+// replaces kmers_tpu/ops/pallas/window_kernel.py canonical_windows_pallas at
+// K = 32, where the register fills 64 bits and no value is left for a
+// sentinel (INT64_MAX is the real 32-mer CTTT...T).  So this instance writes
+// every window's full register, unmasked, and a separate bool validity
+// plane; the last 31 positions get register 0 and validity 0.  At K = 32 the
+// reverse complement's mask is all ones (1 << 64 is undefined) and its shift
+// is 0, and the canonical minimum is unsigned: a 32-mer that starts with G
+// or T has its top bit set.  Bound: 2 bytes a position in (code and flag),
+// 9 out (register and validity).
 #include "common.cuh"
 
 namespace {
@@ -91,6 +102,42 @@ general_windows_kernel(const uint8_t* __restrict__ codes,
     out[i] = res;
 }
 
+constexpr int kHalo32 = 31;  // K - 1 at K = 32
+
+template <bool kCanonical>
+__global__ void __launch_bounds__(kBlock)
+windows_k32_kernel(const uint8_t* __restrict__ codes, const uint8_t* __restrict__ good,
+                   int64_t n, int64_t* __restrict__ out, bool* __restrict__ valid) {
+    __shared__ uint16_t tile[kBlock + kHalo32];
+    const int t = threadIdx.x;
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlock;
+    const int64_t i = base + t;
+    tile[t] = stage(codes, good, i, n);
+    if (t < kHalo32) tile[kBlock + t] = stage(codes, good, base + kBlock + t, n);
+    __syncthreads();
+    if (i >= n) return;
+
+    uint64_t v = 0;
+    bool ok = false;
+    if (i + 32 <= n) {
+        uint64_t fw = 0;
+        uint32_t flags = 0;
+        for (int j = 0; j < 32; ++j) {
+            const uint16_t p = tile[t + j];
+            fw = (fw << 2) | (p & 0xFFu);
+            flags |= p;
+        }
+        v = fw;
+        if constexpr (kCanonical) {
+            const uint64_t rc = kmers::swap_bit_pairs(__brevll(~fw));
+            v = fw <= rc ? fw : rc;
+        }
+        ok = !(flags & kBad);
+    }
+    out[i] = static_cast<int64_t>(v);
+    valid[i] = ok;
+}
+
 template <int kBps, bool kCanonical>
 void launch(const uint8_t* codes, const uint8_t* good, long long n, int K,
             int64_t* out, cudaStream_t stream) {
@@ -121,6 +168,26 @@ extern "C" int k6_general_windows(const void* codes_, const void* good_,
             case 16: launch<8, false>(codes, good, n, K, out, stream); break;
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K = 32 at 2 bits.  codes, good: uint8[n] (good: 0 or 1); out: int64[n],
+// the unmasked register of every window (0 at the last 31 positions);
+// valid: bool[n], the window's symbols all good.
+extern "C" int k8b_windows_k32(const void* codes_, const void* good_, long long n,
+                               int canonical, void* out_, void* valid_, void* stream_) {
+    if (n > 0) {
+        const auto* codes = static_cast<const uint8_t*>(codes_);
+        const auto* good = static_cast<const uint8_t*>(good_);
+        auto* out = static_cast<int64_t*>(out_);
+        auto* valid = static_cast<bool*>(valid_);
+        const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+        auto stream = static_cast<cudaStream_t>(stream_);
+        if (canonical)
+            windows_k32_kernel<true><<<blocks, kBlock, 0, stream>>>(codes, good, n, out, valid);
+        else
+            windows_k32_kernel<false><<<blocks, kBlock, 0, stream>>>(codes, good, n, out, valid);
     }
     return static_cast<int>(cudaGetLastError());
 }

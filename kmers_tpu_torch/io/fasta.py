@@ -1,23 +1,62 @@
-"""FASTA/FASTQ ingestion, in pure Python.
+"""FASTA/FASTQ ingestion: the native C++ scanner, with a pure-Python fallback.
 
-Counterpart of the pure-Python scanner of ``kmers_tpu/io/fasta.py``
-(``_scan_python``, ``read_fastx_bytes``, ``read_fastx``, and the batched
-``stream_fastx``); the port keeps its own copy and imports nothing of the
-JAX package.  The JAX package's native C++ scanner is not carried over.
-Records come back CSR-style: one concatenated sequence byte buffer plus
-record-start offsets.
+Counterpart of ``kmers_tpu/io/fasta.py``, routed as it routes: every reader
+parses with the native scanner (``io/native/fastx.cpp``, the port's own
+copy, built by g++ at first use) whenever it builds, and in pure Python
+otherwise; ``use_native=`` picks a route.  The two scanners disagree on
+malformed input (a ``>`` inside a FASTA sequence line; CRLF, blank-line
+separated or multi-line FASTQ), so each route is held against the JAX
+package's same route.  Records come back CSR-style: one concatenated
+sequence byte buffer plus record-start offsets.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gzip
 
 import numpy as np
 
-__all__ = ["read_fastx", "read_fastx_bytes", "stream_fastx"]
+from . import native
+
+__all__ = [
+    "read_fastx",
+    "read_fastx_bytes",
+    "stream_fastx",
+    "native_available",
+    "merge_count_tables_native",
+]
 
 
-def _scan(data: bytes):
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def native_available() -> bool:
+    """True when the native scanner is built and loaded."""
+    return native.library() is not None
+
+
+def _scan_native(buf: np.ndarray):
+    lib = native.library()
+    n_rec = lib.fastx_count_records(_ptr(buf, ctypes.c_uint8), buf.size)
+    if n_rec < 0:
+        raise ValueError("malformed FASTA/FASTQ input")
+    seq = np.empty(buf.size, dtype=np.uint8)
+    offsets = np.empty(n_rec + 1, dtype=np.int64)
+    out_n = ctypes.c_int64()
+    out_len = ctypes.c_int64()
+    rc = lib.fastx_scan(
+        _ptr(buf, ctypes.c_uint8), buf.size, _ptr(seq, ctypes.c_uint8),
+        _ptr(offsets, ctypes.c_int64), ctypes.byref(out_n), ctypes.byref(out_len),
+    )
+    if rc != 0:
+        raise ValueError("malformed FASTA/FASTQ input")
+    return seq[: out_len.value].copy(), offsets[: out_n.value + 1]
+
+
+def _scan_python(buf: np.ndarray):
+    data = buf.tobytes()
     if not data:
         return np.zeros(0, np.uint8), np.zeros(1, np.int64)
     seqs: list[bytes] = []
@@ -60,26 +99,57 @@ def _scan(data: bytes):
     )
 
 
-def read_fastx_bytes(data):
+def read_fastx_bytes(data, use_native: bool | None = None):
     """Parse FASTA/FASTQ bytes -> (seq_bytes uint8, record_offsets int64).
 
     ``seq_bytes`` is every record's sequence concatenated (newlines and
     headers removed); ``record_offsets[i]:record_offsets[i+1]`` delimits
-    record *i*.
+    record *i*.  ``use_native`` picks the scanner; by default the native one
+    when it is built.
     """
-    if not isinstance(data, (bytes, bytearray, memoryview)):
-        data = np.asarray(data, dtype=np.uint8).tobytes()
-    return _scan(bytes(data))
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    else:
+        buf = np.asarray(data, dtype=np.uint8)
+    use = native_available() if use_native is None else use_native
+    if use:
+        return _scan_native(np.ascontiguousarray(buf))
+    return _scan_python(buf)
 
 
-def read_fastx(path):
+def read_fastx(path, use_native: bool | None = None):
     """Read and parse a FASTA/FASTQ file (see :func:`read_fastx_bytes`);
     gzip-compressed files are detected by their magic bytes and inflated."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\x1f\x8b":
         data = gzip.decompress(data)
-    return read_fastx_bytes(data)
+    return read_fastx_bytes(data, use_native=use_native)
+
+
+def merge_count_tables_native(k1, c1, k2, c2):
+    """Merge two sorted ``(kmer uint64, count int64)`` tables, summing
+    duplicates: the native two-pointer merge, with a numpy fallback."""
+    k1 = np.ascontiguousarray(k1, dtype=np.uint64)
+    c1 = np.ascontiguousarray(c1, dtype=np.int64)
+    k2 = np.ascontiguousarray(k2, dtype=np.uint64)
+    c2 = np.ascontiguousarray(c2, dtype=np.int64)
+    lib = native.library()
+    if lib is not None:
+        ko = np.empty(k1.size + k2.size, dtype=np.uint64)
+        co = np.empty(k1.size + k2.size, dtype=np.int64)
+        n = lib.merge_count_tables(
+            _ptr(k1, ctypes.c_uint64), _ptr(c1, ctypes.c_int64), k1.size,
+            _ptr(k2, ctypes.c_uint64), _ptr(c2, ctypes.c_int64), k2.size,
+            _ptr(ko, ctypes.c_uint64), _ptr(co, ctypes.c_int64),
+        )
+        return ko[:n].copy(), co[:n].copy()
+    kmers = np.concatenate([k1, k2])
+    counts = np.concatenate([c1, c2])
+    uniq, inv = np.unique(kmers, return_inverse=True)
+    summed = np.zeros(uniq.size, np.int64)
+    np.add.at(summed, inv, counts)
+    return uniq, summed
 
 
 def stream_fastx(path, batch_bytes: int = 1 << 26):

@@ -1,7 +1,8 @@
 """The port's compute plane: classification, window registers, hashing,
 minimizers, translation and reverse translation, six-frame amino-acid
 windows, counting of one- and multi-word registers, the device table fold
-(merge and compaction), and the CUDA kernels (``ops.kernels``)."""
+(merge and compaction), the bitonic sort (kernel K11, on no default path),
+and the CUDA kernels (``ops.kernels``)."""
 
 from .count import (
     SENTINEL,
@@ -12,6 +13,7 @@ from .count import (
 )
 from .encode import classify_2bit
 from .hashing import fx_hash_u64
+from .kernels.sort_kernel import bitonic_local_sort, bitonic_sort
 from .minimizer import closed_syncmer_mask, minimizers, minimizers_masked, sliding_min_u64
 from .multiword import (
     canonical_windows_mw,
@@ -47,6 +49,8 @@ __all__ = [
     "compact_counts",
     "merge_sorted_counts",
     "merge_compact_tables",
+    "bitonic_local_sort",
+    "bitonic_sort",
     "canonical_windows_mw",
     "canonical_windows_mw_bytes",
     "sort_count_mw",

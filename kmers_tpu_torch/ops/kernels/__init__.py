@@ -10,8 +10,11 @@ K3        ``multiword_kernel.canonical_words``  ``multiword_kernel.canonical_win
 K4        ``sixframe_kernel.sixframe_windows``  ``sixframe_kernel.sixframe_windows_u32_pallas``
 K5        ``sixframe_kernel.sixframe_words``    ``sixframe_kernel.sixframe_windows_mw_u32_pallas``
 K6        ``general_kernel.windows_general``    ``general_kernel.windows_pallas_general``
+K8b       ``general_kernel.windows_k32``        ``window_kernel.canonical_windows_pallas`` at K = 32
 K9        ``merge_kernel.merge_tables``         ``merge_kernel.bitonic_merge_tail_pallas``
 K10       ``merge_kernel.compact_table``        ``merge_kernel.compact_tail_pallas``
+K11       ``sort_kernel.bitonic_local_sort``    ``sort_kernel.bitonic_local_sort_pallas``
+K11       ``sort_kernel.bitonic_sort``          ``sort_kernel.bitonic_sort_pallas``
 ========  ====================================  ==================================================
 
 K7 (``window_kernel.canonical_windows_bytes_flat_pallas``, the byte form
@@ -21,5 +24,6 @@ so the port calls K1 for it (``pipelines/canonical_count.py::_count_chunk``).
 A wrapper given a CUDA tensor launches its kernel (built on first use by
 :mod:`._build`) or raises; given a CPU tensor it runs the plain version.
 The package imports none of its modules: the plain versions build on
-``ops``, whose counting imports K2, so callers import the module they use.
+``ops``, whose counting imports K2, so callers import the module they use
+(``ops`` itself re-exports K11's two functions, which need nothing of it).
 """

@@ -13,6 +13,12 @@ sentinel.
 
 Precondition, as in the JAX package (``pack_words`` does not mask): every
 code is below ``2^bps``.
+
+At K = 32 and 2 bits a register fills 64 bits and no value is left for the
+sentinel, so :func:`windows_k32`, the K = 32 instance of the same kernel
+(the port's counterpart of ``kmers_tpu/ops/pallas/window_kernel.py::canonical_windows_pallas``
+at K = 32, kernel K8b), returns the unmasked registers and a separate
+validity plane.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from ..windows import (
 )
 from . import _build
 
-__all__ = ["windows_general", "windows_general_plain"]
+__all__ = ["windows_general", "windows_general_plain", "windows_k32", "windows_k32_plain"]
 
 
 def _check(K: int, bps: int, canonical: bool) -> None:
@@ -61,6 +67,24 @@ def windows_general_plain(
     return out
 
 
+def _on_cuda(codes: torch.Tensor, good: torch.Tensor, name: str) -> bool:
+    """Check a wrapper's codes and mask; True when they lie on a CUDA device
+    (launch the kernel), False on the CPU (take the plain version)."""
+    if codes.dtype != torch.uint8 or codes.dim() != 1:
+        raise TypeError(f"{name} takes 1-D uint8 codes")
+    if good.dtype != torch.bool or good.shape != codes.shape:
+        raise TypeError(f"{name} takes a bool mask of the codes' shape")
+    if codes.device != good.device:
+        raise ValueError("codes and mask must be on one device")
+    if codes.device.type == "cpu":
+        return False
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    if not (codes.is_contiguous() and good.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+    return True
+
+
 @functools.cache
 def _kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
@@ -76,18 +100,8 @@ def windows_general(
     launches the kernel; a CPU tensor takes :func:`windows_general_plain`.
     """
     _check(K, bps, canonical)
-    if codes.dtype != torch.uint8 or codes.dim() != 1:
-        raise TypeError("windows_general takes 1-D uint8 codes")
-    if good.dtype != torch.bool or good.shape != codes.shape:
-        raise TypeError("windows_general takes a bool mask of the codes' shape")
-    if codes.device != good.device:
-        raise ValueError("codes and mask must be on one device")
-    if codes.device.type == "cpu":
+    if not _on_cuda(codes, good, "windows_general"):
         return windows_general_plain(codes, good, K, bps, canonical)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    if not (codes.is_contiguous() and good.is_contiguous()):
-        raise ValueError("windows_general takes contiguous tensors")
     n = codes.shape[0]
     out = torch.empty(n, dtype=torch.int64, device=codes.device)
     if n:
@@ -104,3 +118,51 @@ def windows_general(
 
 #: kernel launches in this process (the wrapper adds one per launch)
 windows_general.launches = 0
+
+
+def windows_k32_plain(codes: torch.Tensor, good: torch.Tensor, canonical: bool = False):
+    """Plain torch version of :func:`windows_k32`, on any device."""
+    L = codes.shape[0]
+    win = (canonical_windows_from_codes if canonical else windows_from_codes)(codes, 32)
+    n = win.shape[0]
+    out = torch.zeros(L, dtype=torch.int64, device=codes.device)
+    valid = torch.zeros(L, dtype=torch.bool, device=codes.device)
+    out[:n] = win
+    valid[:n] = window_valid_mask(good.to(torch.bool), 32)
+    return out, valid
+
+
+@functools.cache
+def _k32_kernel():
+    v = ctypes.c_void_p
+    return _build.kernel("k8b_windows_k32", (v, v, ctypes.c_longlong, ctypes.c_int, v, v, v))
+
+
+def windows_k32(codes: torch.Tensor, good: torch.Tensor, canonical: bool = False):
+    """32-mer registers of a 2-bit code stream: ``codes`` a 1-D ``uint8``
+    tensor (each code below 4), ``good`` a ``bool`` tensor of the same
+    length.  Returns ``(registers, valid)`` of the input's length:
+    ``registers`` int64, the forward or canonical (unsigned minimum)
+    register of every window ``[i, i + 32)`` as a 64-bit pattern, unmasked,
+    0 at the last 31 positions; ``valid`` bool, all 32 symbols good.  A CUDA
+    tensor launches the kernel; a CPU tensor takes :func:`windows_k32_plain`.
+    """
+    if not _on_cuda(codes, good, "windows_k32"):
+        return windows_k32_plain(codes, good, canonical)
+    n = codes.shape[0]
+    out = torch.empty(n, dtype=torch.int64, device=codes.device)
+    valid = torch.empty(n, dtype=torch.bool, device=codes.device)
+    if n:
+        with torch.cuda.device(codes.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = _k32_kernel()(
+                codes.data_ptr(), good.data_ptr(), n, int(canonical), out.data_ptr(),
+                valid.data_ptr(), stream,
+            )
+        _build.check(code, "k8b_windows_k32")
+        windows_k32.launches += 1
+    return out, valid
+
+
+#: kernel launches in this process (the wrapper adds one per launch)
+windows_k32.launches = 0

@@ -1,5 +1,6 @@
 """Input and device resolution shared by the pipelines: ASCII bytes to a
-uint8 array, CSR records joined with ``N``, and the explicit device."""
+uint8 array, CSR records joined with ``N``, the explicit device, and the
+upload of a byte array."""
 
 from __future__ import annotations
 
@@ -30,6 +31,11 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint8 host array as a tensor on ``device`` (one copy)."""
+    return torch.tensor(arr, dtype=torch.uint8, device=device)
 
 
 def join_records_with_n(seq_bytes, offsets) -> np.ndarray:

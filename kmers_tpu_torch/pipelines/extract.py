@@ -4,9 +4,9 @@ syncmers of an ASCII nucleotide buffer.
 Counterpart of ``kmers_tpu/pipelines/extract.py``.  The window registers
 of K <= 31 come from kernel K6 (``windows_general`` at 2 bits: the kernel
 on CUDA, its plain version on the CPU), as the reference's TPU route does;
-at K = 32 a register fills 64 bits and can equal the sentinel, so plain
-torch computes the windows and a mask on every device, as the reference's
-jnp route does.  Values are returned as ``np.uint64`` (a K = 32 register's
+at K = 32 a register fills 64 bits and can equal the sentinel, so K6's
+K = 32 instance (``windows_k32``, kernel K8b) gives the registers and a
+separate validity mask.  Values are returned as ``np.uint64`` (a K = 32 register's
 bit pattern), positions as ``np.int64``.  ``syncmer_select`` is plain torch
 on every device, as in the reference.
 """
@@ -19,7 +19,7 @@ import torch
 from ..convert import SENTINEL
 from ..ops.encode import classify_2bit
 from ..ops.hashing import fx_hash_u64
-from ..ops.kernels.general_kernel import windows_general
+from ..ops.kernels.general_kernel import windows_general, windows_k32
 from ..ops.minimizer import closed_syncmer_mask, minimizers, minimizers_masked
 from ..ops.windows import canonical_windows_from_codes, window_valid_mask, windows_from_codes
 from ..symbols import EncodeError
@@ -41,6 +41,10 @@ def _extract(buf: torch.Tensor, K: int, canonical: bool):
     if 1 <= K * 2 <= 62:
         win = windows_general(codes.to(torch.uint8), certain, K, 2, canonical)[:n]
         return win, win != SENTINEL, counts.tolist()
+    if K == 32:
+        win, valid = windows_k32(codes.to(torch.uint8), certain, canonical)
+        return win[:n], valid[:n], counts.tolist()
+    # other K: the plain windows raise the reference's errors
     windows = canonical_windows_from_codes if canonical else windows_from_codes
     return windows(codes, K), window_valid_mask(certain, K), counts.tolist()
 

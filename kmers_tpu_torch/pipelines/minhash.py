@@ -109,7 +109,10 @@ class StreamingSketcher:
     sketch(A) ∪ sketch(B), so the running state is one sorted array of at
     most s hashes, and every chunk's sketch is exact: the result equals the
     one-shot sketch of the concatenated input.  Ambiguous bases are
-    skipped; invalid bytes raise.
+    skipped; invalid bytes raise.  With ``metrics`` (a
+    :class:`~kmers_tpu_torch.utils.Metrics`), ``finalize`` records one batch
+    as the reference does: bases in, windows out (those inside records when
+    ``offsets`` are given), no windows skipped, and the sketch's size.
 
     >>> sk = StreamingSketcher(K=16, s=1000, device="cpu")
     >>> for seq, off in stream_fastx("reads.fq.gz"):
@@ -117,14 +120,19 @@ class StreamingSketcher:
     >>> sketch = sk.finalize()
     """
 
-    def __init__(self, K: int = 16, s: int = 1000, chunk_size: int = 1 << 24, device="cuda"):
+    def __init__(self, K: int = 16, s: int = 1000, chunk_size: int = 1 << 24, metrics=None,
+                 device="cuda"):
         if chunk_size < K:
             raise ValueError("chunk_size must be >= K")
         self.K, self.s, self.chunk_size = K, s, chunk_size
         self.device = resolve_device(device)
         self._sketch = np.zeros(0, np.uint64)
         self._bases = 0
+        self._windows = 0
         self._done = False
+        self.metrics = metrics
+        if metrics is not None:
+            metrics.start_batch()
 
     def update(self, seq_bytes, offsets=None):
         """Sketch one record batch.  ``offsets`` (int64 CSR record starts,
@@ -135,10 +143,14 @@ class StreamingSketcher:
         arr = as_byte_array(seq_bytes)
         K = self.K
         if offsets is not None:
-            self._bases += int(np.diff(np.asarray(offsets)).sum())
+            # the windows inside each record (none spans an 'N' join)
+            lens = np.diff(np.asarray(offsets))
+            self._windows += int(np.maximum(lens - K + 1, 0).sum())
+            self._bases += int(lens.sum())
             arr = join_records_with_n(arr, offsets)
         else:
             self._bases += arr.shape[0]
+            self._windows += max(arr.shape[0] - K + 1, 0)
         L = arr.shape[0]
         if L < K:
             return
@@ -155,6 +167,11 @@ class StreamingSketcher:
 
     def finalize(self) -> np.ndarray:
         self._done = True
+        if self.metrics is not None:
+            self.metrics.end_batch(
+                bases_in=self._bases, windows_out=self._windows, windows_skipped=0,
+                distinct_kmers=int(self._sketch.size),
+            )
         return self._sketch
 
 

@@ -19,11 +19,10 @@ joins the stack, whose merges run K9, the weighted RLE and K10.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops.count import merge_compact_tables
 from ..symbols import EncodeError
-from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device
+from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device, upload
 from ._stream import level_stack, push_chunks
 from .canonical_count import CountConfig, _count_chunk
 
@@ -81,7 +80,7 @@ class StreamingCounter:
         if L < K:
             return
         self._n_windows += L - K + 1
-        buf = torch.tensor(arr, dtype=torch.uint8, device=self.device)
+        buf = upload(arr, self.device)
         # the checked tallies: n_valid feeds finalize()'s conservation check
         n_invalid, _n_ambig, n_valid, _n_counted = push_chunks(
             buf, K, self.config.resolved_chunk_size,

@@ -12,9 +12,11 @@ sorted ``(kmers, counts)`` pair that the counting pipelines return:
 - :func:`merge_counts_device`: :func:`merge_counts` on the device, through
   the table fold of the counting pipelines (kernels K9 and K10).
 
-The host functions are numpy and accept uint64 tables (K <= 31) and
-object-dtype tables of Python ints (K > 31); inputs must be sorted-unique,
-which every producer of the package guarantees.
+The host functions are numpy (``merge_counts`` of two uint64 tables is the
+native two-pointer merge of ``io/fasta.py``, as in the reference) and
+accept uint64 tables (K <= 31) and object-dtype tables of Python ints
+(K > 31); inputs must be sorted-unique, which every producer of the
+package guarantees.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.fasta import merge_count_tables_native
 from ..ops.count import merge_compact_tables
 from ._input import resolve_device
 
@@ -50,17 +53,12 @@ def merge_counts(a_kmers, a_counts, b_kmers, b_counts):
     table the concatenated inputs would have counted to."""
     ak, ac = _check_table(a_kmers, a_counts)
     bk, bc = _check_table(b_kmers, b_counts)
+    if ak.dtype == np.uint64 and bk.dtype == np.uint64:
+        # the native two-pointer merge (numpy fallback inside), as the
+        # reference merges uint64 tables
+        return merge_count_tables_native(ak, ac, bk, bc)
     keys = np.concatenate([ak, bk])
     cnts = np.concatenate([ac, bc])
-    if ak.dtype == np.uint64 and bk.dtype == np.uint64:
-        # vectorised merge of two sorted tables: a stable sort of the
-        # concatenation, then one sum per run of equal keys
-        order = np.argsort(keys, kind="stable")
-        keys, cnts = keys[order], cnts[order]
-        if not keys.size:
-            return keys, cnts
-        first = np.flatnonzero(np.concatenate([[True], keys[1:] != keys[:-1]]))
-        return keys[first], np.add.reduceat(cnts, first)
     uniq, inv = np.unique(keys, return_inverse=True)
     summed = np.zeros(uniq.size, np.int64)
     np.add.at(summed, inv, cnts)

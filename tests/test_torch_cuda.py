@@ -3,13 +3,19 @@ card.  Every test carries the ``cuda`` marker and skips without a CUDA
 device; run them on a GPU host with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import collections
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from kmers_tpu_torch.convert import SENTINEL
-from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
+from kmers_tpu_torch.ops.kernels.general_kernel import (
+    windows_general,
+    windows_general_plain,
+    windows_k32,
+    windows_k32_plain,
+)
 from kmers_tpu_torch.ops.kernels.merge_kernel import (
     compact_table,
     compact_table_plain,
@@ -18,6 +24,13 @@ from kmers_tpu_torch.ops.kernels.merge_kernel import (
 )
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
 from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
+from kmers_tpu_torch.ops.kernels.sort_kernel import (
+    MAX_TILE,
+    bitonic_local_sort,
+    bitonic_local_sort_plain,
+    bitonic_sort,
+    bitonic_sort_plain,
+)
 from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
     sixframe_windows,
     sixframe_windows_plain,
@@ -273,9 +286,11 @@ def test_minhash_fallback_and_streaming_on_cuda(cuda):
 def test_extract_on_cuda_matches_cpu(cuda, K, canonical):
     data = _bytes(500_000, K)
     data[data == ord("X")] = ord("G")
-    before = windows_general.launches
+    before = windows_general.launches, windows_k32.launches
     got = tex.extract_kmers(data, K=K, canonical=canonical, device="cuda")
-    assert windows_general.launches - before == (1 if K <= 31 else 0)
+    # K <= 31 launches K6, K = 32 its K = 32 instance (K8b)
+    assert (windows_general.launches - before[0], windows_k32.launches - before[1]) == (
+        (1, 0) if K <= 31 else (0, 1))
     want = tex.extract_kmers(data, K=K, canonical=canonical, device="cpu")
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
     got = tex.minimizer_select(data, K=K, W=10, canonical=canonical, skip_ambiguous=True, device="cuda")
@@ -458,3 +473,114 @@ def test_bench_on_cuda(cuda):
     line = bench(L=1 << 20, device="cuda")
     assert canonical_windows.launches - before == 4
     assert line["metric"] == "canonical_31mer_count_bases_per_sec_per_chip" and line["value"] > 0
+
+
+def _sort_cases():
+    rng = np.random.default_rng(13)
+    n = 1 << 15
+    rand = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64))
+    extremes = rand.clone()
+    extremes[::97] = torch.iinfo(torch.int64).min
+    extremes[5::89] = torch.iinfo(torch.int64).max
+    sentinels = rand.clone()
+    sentinels[torch.from_numpy(rng.random(n) < 0.3)] = SENTINEL
+    return {
+        "random": rand,
+        "all equal": torch.full((n,), -5, dtype=torch.int64),
+        "all sentinel": torch.full((n,), SENTINEL, dtype=torch.int64),
+        "sorted": torch.sort(rand).values,
+        "reverse sorted": torch.sort(rand, descending=True).values,
+        "int64 extremes": extremes,
+        "30 % sentinels": sentinels,
+        "few distinct": torch.from_numpy(rng.integers(0, 3, n)),
+    }
+
+
+SORT_CASES = list(_sort_cases())
+
+
+@pytest.mark.parametrize("name", SORT_CASES)
+@pytest.mark.parametrize("tile", [1, 2, 64, 1024, 8192, MAX_TILE])
+def test_sort_kernel_matches_plain(cuda, name, tile):
+    keys = _sort_cases()[name]
+    before = bitonic_sort.launches, bitonic_local_sort.launches
+    got = bitonic_sort(keys.to(cuda), tile)
+    local = bitonic_local_sort(keys.to(cuda), tile)
+    torch.cuda.synchronize()
+    assert bitonic_sort.launches - before[0] == 1 and bitonic_local_sort.launches - before[1] == 2
+    _assert_same([got], [torch.sort(keys).values])
+    _assert_same([got, local], [bitonic_sort_plain(keys, tile), bitonic_local_sort_plain(keys, tile)])
+
+
+@pytest.mark.parametrize("n", [1, 2, 1024, 8192, 1 << 21])
+def test_sort_kernel_at_one_tile_and_large_n(cuda, n):
+    keys = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << 62, n))
+    got = bitonic_sort(keys.to(cuda))
+    torch.cuda.synchronize()
+    _assert_same([got], [torch.sort(keys).values])
+    local = bitonic_local_sort(keys.to(cuda), min(n, 8192))
+    _assert_same([local], [bitonic_local_sort_plain(keys, min(n, 8192))])
+
+
+def test_sort_kernel_max_tile_matches_the_source(cuda):
+    from kmers_tpu_torch.ops.kernels import _build
+
+    fn = _build.library().k11_max_tile
+    fn.restype = ctypes.c_int
+    assert fn() == MAX_TILE
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 255, 256, 287, 288, 5003, (1 << 20) + 3])
+def test_k32_kernel_matches_plain(cuda, canonical, L):
+    rng = np.random.default_rng(L)
+    codes = torch.from_numpy(rng.integers(0, 4, L).astype(np.uint8))
+    good = torch.from_numpy(rng.random(L) > 0.002)
+    before = windows_k32.launches
+    got = windows_k32(codes.to(cuda), good.to(cuda), canonical)
+    torch.cuda.synchronize()
+    assert windows_k32.launches == before + 1
+    _assert_same(got, windows_k32_plain(codes, good, canonical))
+
+
+@pytest.mark.parametrize("offset", [1, 7, 99999])
+def test_k32_kernel_on_odd_offsets(cuda, offset):
+    rng = np.random.default_rng(offset)
+    codes = torch.from_numpy(rng.integers(0, 4, 1 << 18).astype(np.uint8)).to(cuda)
+    good = torch.from_numpy(rng.random(1 << 18) > 0.01).to(cuda)
+    for canonical in (False, True):
+        got = windows_k32(codes[offset:], good[offset:], canonical)
+        torch.cuda.synchronize()
+        _assert_same(got, windows_k32_plain(codes[offset:].cpu(), good[offset:].cpu(), canonical))
+
+
+def test_cli_checkpoint_commands_on_cuda_match_cpu(cuda, tmp_path, capsys):
+    import json
+
+    from kmers_tpu_torch.__main__ import main
+    from kmers_tpu_torch.utils import load_count_table
+
+    rng = np.random.default_rng(14)
+    fa = tmp_path / "reads.fa"
+    fa.write_text("".join(f">r{i}\n{''.join('ACGT'[j] for j in rng.integers(0, 4, 3000))}\n" for i in range(6)))
+    for k in (21, 40):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            d = tmp_path / f"{dev}{k}"
+            main(["count", str(fa), "-k", str(k), "-o", str(d / "a"), "--device", dev])
+            main(["count", str(fa), "-k", str(k), "-o", str(d / "b"), "--device", dev])
+            before = merge_tables.launches, compact_table.launches
+            main(["merge", str(d / "a"), str(d / "b"), "-o", str(d / "m"), "--device", dev])
+            if dev == "cuda":
+                # K <= 31 merges on the device (one K9, one K10); K > 31 on the host
+                want = (1, 1) if k <= 31 else (0, 0)
+                assert (merge_tables.launches - before[0], compact_table.launches - before[1]) == want
+            main(["verify", str(d / "a")])
+            lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+            for line in lines:
+                line.pop("output", None)
+                line.pop("checkpoint", None)
+            outs[dev] = (lines, load_count_table(d / "m"))
+        assert outs["cuda"][0] == outs["cpu"][0] and outs["cuda"][0][-1]["ok"]
+        got, want = outs["cuda"][1], outs["cpu"][1]
+        assert [int(v) for v in got[0]] == [int(v) for v in want[0]] and np.array_equal(got[1], want[1])

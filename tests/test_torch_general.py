@@ -9,7 +9,10 @@ the window building blocks under it, bit-exact against the JAX package:
   covers with K6 at 2 bits;
 - ``ops/windows.py`` against the jnp window functions at 2, 4 and 8 bits,
   K = 32 included;
-- the wrapper on the CPU, and its argument checks.
+- the K = 32 instance's plain version, ``windows_k32_plain`` (K8b at
+  K = 32), against ``canonical_windows_pallas`` in interpret mode and the jnp
+  forward windows and validity mask;
+- the wrappers on the CPU, and their argument checks.
 
 The kernel itself runs only on a GPU (tests/test_torch_cuda.py).
 """
@@ -31,7 +34,12 @@ from kmers_tpu.ops.pallas.window_kernel import (
 )
 from kmers_tpu_torch.convert import SENTINEL, keys_from_jax
 from kmers_tpu_torch.ops import windows
-from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_general_plain
+from kmers_tpu_torch.ops.kernels.general_kernel import (
+    windows_general,
+    windows_general_plain,
+    windows_k32,
+    windows_k32_plain,
+)
 
 
 def _codes(bps, L, seed):
@@ -173,3 +181,62 @@ def test_short_and_empty_streams():
         codes = torch.zeros(L, dtype=torch.uint8)
         got = windows_general(codes, torch.ones(L, dtype=torch.bool), 5)
         assert got.shape == (L,) and (got == SENTINEL).all()
+
+
+def _u64_keys(hi, lo):
+    """JAX (hi, lo) u32 pairs -> the 64-bit patterns as int64 (no sentinel)."""
+    full = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(lo).astype(np.uint64)
+    return torch.from_numpy(full.view(np.int64))
+
+
+@pytest.mark.parametrize("L", [32, 33, 1000, 4099])
+def test_k32_plain_matches_k8b_canonical_windows_pallas(L):
+    """K8b at K = 32: the unmasked canonical registers of a packed stream,
+    with 'N's (their 2-bit codes still enter the registers)."""
+    codes, good = _codes(2, L, L)
+    words = pack_words(codes.astype(np.uint32), bps=2, pad_words=2)
+    hi, lo = canonical_windows_pallas(np.asarray(words), 32, W=128, interpret=True)
+    n = L - 32 + 1
+    want = _u64_keys(linearize_offset_major(hi, n), linearize_offset_major(lo, n))
+    got, valid = windows_k32_plain(_t(codes), _t(good), canonical=True)
+    assert got.shape == valid.shape == (L,)
+    assert torch.equal(got[:n], want)
+    assert (got[:n] < 0).any() or L < 1000  # top bit set: G or T first, unsigned order
+    assert torch.equal(valid[:n], torch.from_numpy(np.asarray(jax_windows.window_valid_mask(good, 32))))
+    assert not valid[n:].any() and not got[n:].any()
+
+
+def test_k32_plain_forward_matches_jnp_windows():
+    codes, good = _codes(2, 3001, 32)
+    got, valid = windows_k32_plain(_t(codes), _t(good), canonical=False)
+    n = 3001 - 31
+    want = _jax_u64(jax_windows.windows_from_codes(codes.astype(np.uint32), 32, 2))
+    assert np.array_equal(got[:n].numpy().view(np.uint64), want)
+    assert torch.equal(valid[:n], torch.from_numpy(np.asarray(jax_windows.window_valid_mask(good, 32))))
+    assert 0 < int(valid.sum()) < n
+
+
+def test_k32_keeps_the_sentinel_valued_kmer():
+    # CTTT...T is INT64_MAX, the sentinel of K <= 31: valid by its mask
+    codes = torch.tensor([1] + [3] * 31, dtype=torch.uint8)
+    for canonical in (False, True):
+        got, valid = windows_k32(codes, torch.ones(32, dtype=torch.bool), canonical)
+        # its reverse complement is A^31 G, register 2
+        assert got[:1].tolist() == [2 if canonical else SENTINEL] and valid.tolist() == [True] + [False] * 31
+
+
+def test_k32_wrapper_takes_plain_version_on_cpu_and_checks_arguments():
+    codes, good = _codes(2, 1000, 2)
+    before = windows_k32.launches
+    for canonical in (False, True):
+        got = windows_k32(_t(codes), _t(good), canonical)
+        want = windows_k32_plain(_t(codes), _t(good), canonical)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert windows_k32.launches == before
+    with pytest.raises(TypeError):
+        windows_k32(torch.zeros(8, dtype=torch.int64), torch.ones(8, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        windows_k32(torch.zeros(8, dtype=torch.uint8), torch.ones(4, dtype=torch.bool))
+    for L in (0, 1, 31):
+        got, valid = windows_k32(torch.zeros(L, dtype=torch.uint8), torch.ones(L, dtype=torch.bool))
+        assert got.shape == (L,) and not got.any() and not valid.any()

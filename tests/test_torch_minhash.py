@@ -1,9 +1,11 @@
 """MinHash sketching of the port on the CPU, bit-exact against the JAX
 package's jnp route (``use_pallas=False``): ``minhash_sketch`` over K and
 sketch sizes (K = 32 through plain torch), the full-width fallback on
-repetitive input, the error contract, ``StreamingSketcher``,
-``sketch_fastx_stream`` on FASTA and gzipped FASTQ, ``jaccard``, and the
-CLI's ``sketch`` and ``dist``."""
+repetitive input, the error contract, ``StreamingSketcher`` (with its
+``metrics``), ``sketch_fastx_stream`` on FASTA and gzipped FASTQ,
+``jaccard``, and the CLI's ``sketch`` and ``dist``; and inputs of 0 to 4
+windows, where the reference's jnp route raises (ROADMAP F5), against the
+scalar plane's ``fx_hash`` over ``CanonicalDNAMers``."""
 
 import gzip
 import importlib
@@ -12,10 +14,13 @@ import json
 import numpy as np
 import pytest
 
+from kmers_tpu import CanonicalDNAMers, fx_hash
 from kmers_tpu.__main__ import main as jax_main
 from kmers_tpu.alphabets import EncodeError as JaxEncodeError
+from kmers_tpu.utils import Metrics as JaxMetrics
 from kmers_tpu_torch.__main__ import main as port_main
 from kmers_tpu_torch.symbols import EncodeError
+from kmers_tpu_torch.utils import Metrics
 
 jmh = importlib.import_module("kmers_tpu.pipelines.minhash")
 tmh = importlib.import_module("kmers_tpu_torch.pipelines.minhash")
@@ -188,3 +193,55 @@ def test_cli_sketch_and_dist_match_jax(tmp_path, capsys):
     both(["dist", str(headerless), str(sk_b), "-k", "13"])
     with pytest.raises(SystemExit):
         port_main(["dist", str(sk_a), str(sk_b), "-k", "15", "--device", "cpu"])
+
+
+def test_streaming_metrics():
+    # tests/test_extras.py::TestMinHash::test_streaming_metrics
+    rng = np.random.default_rng(0xCCFB2D5055D8C990 % 2**32)
+    seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 5000)).encode()
+    m = Metrics()
+    sk = tmh.StreamingSketcher(K=16, s=50, chunk_size=2048, metrics=m, device="cpu")
+    sk.update(seq)
+    out = sk.finalize()
+    (stats,) = m.batches
+    assert stats.bases_in == 5000 and stats.windows_out == 5000 - 16 + 1
+    assert stats.windows_skipped == 0 and stats.distinct_kmers == out.size == 50
+    assert stats.seconds > 0
+
+
+def test_streaming_metrics_match_jax_with_records():
+    recs = _records(9, 3) + [b"ACG"]  # a record shorter than K has no window
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in recs])]).astype(np.int64)
+    seq = np.frombuffer(b"".join(recs), np.uint8)
+    stats = []
+    for make, metrics in [(lambda m: tmh.StreamingSketcher(K=21, s=100, chunk_size=4096, metrics=m,
+                                                           device="cpu"), Metrics()),
+                          (lambda m: jmh.StreamingSketcher(K=21, s=100, chunk_size=4096, metrics=m,
+                                                           use_pallas=False), JaxMetrics())]:
+        sk = make(metrics)
+        sk.update(seq[: offsets[4]], offsets[:5])
+        sk.update(seq[offsets[4] :], offsets[4:] - offsets[4])
+        sk.update(seq[:50])
+        sk.finalize()
+        (b,) = metrics.batches
+        stats.append((b.bases_in, b.windows_out, b.windows_skipped, b.distinct_kmers))
+    assert stats[0] == stats[1]
+    assert stats[0][1] == sum(max(len(r) - 20, 0) for r in recs) + 50 - 20
+
+
+F5_INPUT = b"TCCCTCCCACtCCTAGCTA"  # K = 16: 4 windows
+
+
+@pytest.mark.parametrize("length", [0, 15, 16, 17, 18, 19])
+def test_zero_to_four_windows_match_the_scalar_plane(length):
+    data = F5_INPUT[:length]
+    want = sorted({fx_hash(k) for k in CanonicalDNAMers(16, data.decode())})[:10]
+    got = tmh.minhash_sketch(data, K=16, s=10, device="cpu")
+    assert got.dtype == np.uint64 and got.tolist() == want
+    assert len(want) == max(length - 15, 0)
+
+
+def test_the_reference_jnp_route_raises_on_four_windows():
+    # the fault the scalar-plane test pins (ROADMAP F5); neither package changes
+    with pytest.raises(ValueError, match="top_k"):
+        jmh.minhash_sketch(F5_INPUT, K=16, s=10, use_pallas=False)

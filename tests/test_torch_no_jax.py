@@ -2,10 +2,12 @@
 ``kmers_tpu``: a fresh interpreter imports ``kmers_tpu_torch``, runs the
 counting path (K = 7 and K = 40), minhash sketching, extraction,
 minimizers, six-frame counting (K = 7 and K = 15), a ``StreamingCounter``,
-``merge_counts_device``, ``bench`` at a small L and the CLI's ``count``
-(also with ``--stream``), ``sketch`` and ``sixframe`` on the CPU, and
-finds neither in ``sys.modules``; and no source of the port or of
-``chip_smoke.py`` has such an import."""
+``merge_counts_device``, ``bench`` at a small L, the bitonic sort, the native
+FASTA scanner, a count-table checkpoint round trip, ``profile_step`` and the
+CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``,
+``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
+``sys.modules``; and no source of the port or of ``chip_smoke.py`` has such
+an import."""
 
 import json
 import os
@@ -29,9 +31,13 @@ DATA_AA = b"ACGTTGCAAC" * 20
 
 SCRIPT = f"""
 import json, sys
+import torch
 import kmers_tpu_torch
 from kmers_tpu_torch.__main__ import main
+from kmers_tpu_torch.io import native_available, read_fastx
+from kmers_tpu_torch.ops import bitonic_sort
 from kmers_tpu_torch.pipelines.canonical_count import bench
+from kmers_tpu_torch.utils import load_count_table, profile_step, save_count_table
 kmers, counts = kmers_tpu_torch.canonical_count_bytes(
     {DATA!r}, kmers_tpu_torch.CountConfig(K=7, chunk_size=100), device="cpu",
 )
@@ -52,10 +58,19 @@ sc.update({DATA!r})
 streamed, streamed_counts = sc.finalize()
 merged, merged_counts = kmers_tpu_torch.merge_counts_device(kmers, counts, streamed, streamed_counts, device="cpu")
 line = bench(L=1 << 12, device="cpu")
+keys = torch.arange(2048, 0, -1) * 7
+ordered = bitonic_sort(keys, 256)
+save_count_table(sys.argv[2] + "/t40", kmers40, counts40, K=40)
+back40, back_counts40, K40 = load_count_table(sys.argv[2] + "/t40")
+top = profile_step(lambda: kmers_tpu_torch.canonical_count_bytes({DATA!r}, kmers_tpu_torch.CountConfig(K=7),
+                                                              device="cpu"), reps=1, top=3)
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--device", "cpu"])
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--stream", "--device", "cpu"])
 main(["sketch", sys.argv[1], "-k", "5", "-s", "3", "--device", "cpu"])
 main(["sixframe", sys.argv[1], "-k", "2", "--device", "cpu"])
+main(["count", sys.argv[1], "-k", "5", "-o", sys.argv[2] + "/a", "--device", "cpu"])
+main(["merge", sys.argv[2] + "/a", sys.argv[2] + "/a", "-o", sys.argv[2] + "/m", "--device", "cpu"])
+main(["verify", sys.argv[2] + "/a"])
 print(json.dumps({{
     "total": int(counts.sum()),
     "total40": int(counts40.sum()),
@@ -67,6 +82,10 @@ print(json.dumps({{
     "streamed": int(streamed_counts.sum()),
     "merged": int(merged_counts.sum()),
     "bench": sorted(line),
+    "sorted": ordered.tolist() == sorted(keys.tolist()),
+    "native": native_available() and read_fastx(sys.argv[1])[1].tolist() == [0, 12, 19],
+    "checkpoint": back40.tolist() == kmers40.tolist() and back_counts40.tolist() == counts40.tolist(),
+    "profiled": len(top),
     "jax": "jax" in sys.modules,
     "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu"),
 }}))
@@ -78,21 +97,26 @@ def test_port_runs_without_importing_jax(tmp_path):
     fa.write_text(">a\nACGTACGGTTAC\n>b\nTTGACCA\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(fa)],
+        [sys.executable, "-c", SCRIPT, str(fa), str(tmp_path)],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     # the CLI's top lines (loaded, then streamed), its sketch (a header and
-    # three hashes), its six-frame totals, then the script's result
-    assert len(lines) == 8 and lines[0] == lines[1] and lines[2] == "#kmers_tpu sketch k=5 s=3"
+    # three hashes), its six-frame totals, the lines of count -o, merge and
+    # verify, then the script's result
+    assert len(lines) == 11 and lines[0] == lines[1] and lines[2] == "#kmers_tpu sketch k=5 s=3"
     # six-frame windows of 2 amino acids (6 bases) inside each record
     assert json.loads(lines[6])["total"] == 2 * ((12 - 5) + (7 - 5))
+    written, merged, verified = (json.loads(x) for x in lines[7:10])
+    assert written["total"] == (12 - 4) + (7 - 4) and merged["total"] == 2 * written["total"]
+    assert verified["ok"] and verified["inputs_checked"] == 1
     assert json.loads(lines[-1]) == {
         "total": TOTAL, "total40": 4 * 30 - 40 + 1, "sketch": 5, "extracted": TOTAL,
         "minimizers": True, "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
         "streamed": TOTAL, "merged": 2 * TOTAL,
-        "bench": ["metric", "unit", "value", "vs_baseline"], "jax": False, "kmers_tpu": [],
+        "bench": ["metric", "unit", "value", "vs_baseline"], "sorted": True, "native": True,
+        "checkpoint": True, "profiled": 3, "jax": False, "kmers_tpu": [],
     }
     # the totals of both count commands
     totals = [json.loads(x) for x in proc.stderr.strip().splitlines()[-2:]]
@@ -100,6 +124,14 @@ def test_port_runs_without_importing_jax(tmp_path):
 
 
 SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+
+
+def test_sources_hold_the_new_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {
+        "kmers_tpu_torch/io/native/__init__.py", "kmers_tpu_torch/utils/checkpoint.py",
+        "kmers_tpu_torch/utils/profiling.py", "kmers_tpu_torch/ops/kernels/sort_kernel.py",
+    } <= names
 
 
 def test_port_sources_do_not_import_jax():
