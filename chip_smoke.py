@@ -13,18 +13,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
    same four views at K = 1, 21, 31 and on the whole chromosome; K6 at its
    five (bps, K, canonical) cases on 2^20 symbols at an odd offset and on
    the whole chromosome; K4 at K = 1, 5, 7 and K5 at K = 8, 15, 32 on four
-   views with the strands clipped differently; K9 at edge cases, at a
-   chunk-table shape and at the K = 31 fold's last-merge shape; K10 on
-   K = 31, six-frame and K = 47 chunk tables), with kernel, plain and
-   library times (CUDA events, median of 20) and K9/K10 device times
-   (``torch.profiler``);
+   views with the strands clipped differently; K9 at edge cases aimed at
+   its tile partition (runs of equal keys across tiles, an empty table,
+   disjoint key ranges, a single row, lengths off the tile, tables off a
+   16-byte boundary), at a chunk-table shape and at the K = 31 fold's
+   last-merge shape; K10 on K = 31, six-frame and K = 47 chunk tables), with
+   kernel, plain and library times (CUDA events, median of 20) and K9/K10
+   device times per launch by kernel (``torch.profiler``);
 4. slice K = 31: canonical counting of a synthetic 48,129,895-base
    chromosome (the length of GRCh37 chr21) on the card, exactly equal to
    an independent numpy reference, its first 100 kb equal to a
    string-level Counter, the CLI's totals on a 3-record FASTA, the
    kernels' launch counts from the counting run (K9 once a merge, K10
-   once a chunk and once a merge), the fold's stream time and a
-   ``torch.profiler`` breakdown;
+   once a chunk and once a merge), the fold's stream time with K9's share
+   and a ``torch.profiler`` breakdown;
 5. slice K = 47 (multi-word registers, K3): the same chromosome, checks and
    launch counts (K10 only: word tables merge by sorting), a stage
    breakdown with synchronising timers; then a few hundred kb at K = 63 (K3,
@@ -68,9 +70,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the halves as two records, ``verify`` exiting 0 and, after one changed
    byte of the input, 1; a K = 47 round trip on 300 kb.
 
-The kernel phase also holds K11 (edge cases at one and two tiles, the local
-pass and the full sort at 2^20 and 2^24 keys, the full sort equal to
-``torch.sort``) and K8b at K = 32 (forward and canonical on the chromosome,
+The kernel phase also holds K11 (edge cases at one and two tiles, runs of
+equal keys across merge rounds, keys off a 16-byte boundary, the local pass
+and the full sort at 2^20, 2^24 and 2^26 keys, the full sort equal to
+``torch.sort``; times at 2^24 with device time per launch by kernel) and
+K8b at K = 32 (forward and canonical on the chromosome,
 both planes) against their plain versions, and phase 6 extracts every 32-mer
 of the chromosome (one K8b launch each, forward and canonical) against
 numpy.
@@ -117,8 +121,9 @@ AA_CHARS = "ARNDCQEGHILKMFPSTWYVOUBJZX*-"
 #: H100 SXM device memory rate (NVIDIA data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 #: K11's key counts in the kernel phase (the probe sorts a 2^20 chunk and
-#: bench's 2^26-byte chunk)
-SORT_SHAPES = (1 << 20, 1 << 24)
+#: bench's 2^26-byte chunk); its times are taken at SORT_TIMED
+SORT_SHAPES = (1 << 20, 1 << 24, 1 << 26)
+SORT_TIMED = 1 << 24
 WORD_BITS = 62
 #: FxHash's multiplier (a hash of a one-word register is reg * FX mod 2^64)
 FX = np.uint64(0x517CC1B727220A95)
@@ -444,11 +449,11 @@ def device_profile(fn, reps: int = 1, warm: bool = False):
     categories = collections.Counter()
     for name, (_, secs) in per_name.items():
         low = name.lower()
-        if "bitonic_" in name:
+        if "k11_" in name:
             cat = "K11 bitonic_local_sort / bitonic_sort"
         elif "windows_k32_kernel" in name:
             cat = "K8b windows_k32"
-        elif "merge_tables_kernel" in name:
+        elif "k9_" in name:
             cat = "K9 merge_tables"
         elif "compact_" in name and "_kernel" in name:
             cat = "K10 compact_table"
@@ -550,16 +555,21 @@ def log_fold(tag: str, fn, merge_module, smi: str) -> dict:
     merges of ``merge_module`` and the chunk compactions of the chunk loop)
     and log their stream time; returns {name: [calls, ms]}."""
     stream = importlib.import_module("kmers_tpu_torch.pipelines._stream")
-    targets = [(merge_module, "merge_compact_tables"), (stream, "compact_counts")]
+    count_ops = importlib.import_module("kmers_tpu_torch.ops.count")
+    targets = [(merge_module, "merge_compact_tables"), (stream, "compact_counts"),
+               (count_ops, "merge_tables")]
     t0 = time.perf_counter()
     with stream_timers(targets) as fold:
         fn()
     wall = time.perf_counter() - t0
     merges = fold.get("merge_compact_tables", [0, 0.0])
     packs = fold.get("compact_counts", [0, 0.0])
+    k9 = fold.get("merge_tables", [0, 0.0])
+    total = merges[1] + packs[1]
     log(f"[{tag}] fold (CUDA events, {wall:.3f} s call): merges {merges[1]:.3f} ms over "
         f"{merges[0]} calls (K9, weighted RLE, K10), chunk compactions {packs[1]:.3f} ms over "
-        f"{packs[0]} calls (K10); {merges[1] + packs[1]:.3f} ms in all ({smi})")
+        f"{packs[0]} calls (K10); {total:.3f} ms in all; K9 {k9[1]:.3f} ms over {k9[0]} calls, "
+        f"{100 * k9[1] / total if total else 0.0:.1f} % of the fold ({smi})")
     return fold
 
 
@@ -900,6 +910,7 @@ def kernels_fold(clean):
     from kmers_tpu_torch.convert import SENTINEL
     from kmers_tpu_torch.ops.count import compact_counts, sort_count
     from kmers_tpu_torch.ops.kernels.merge_kernel import (
+        MERGE_TILE,
         compact_table,
         compact_table_plain,
         merge_tables,
@@ -936,11 +947,27 @@ def kernels_fold(clean):
     sent_b = kb.clone()
     sent_b[-1000:] = SENTINEL
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    tile = MERGE_TILE
+    # one key in a run of 2.5 merge tiles in each table: tile boundaries, and
+    # so co-ranks, fall inside the run that A and B share
+    pivot = int(ka[ka.numel() // 2])
+    run = torch.full((5 * tile // 2,), pivot, dtype=torch.int64, device=dev)
+    run_a = torch.cat([ka[ka < pivot][-3000:], run, ka[ka > pivot][:3000]])
+    run_b = torch.cat([kb[kb < pivot][-5000:], run, kb[kb > pivot][:7000]])
+    real_a = ka != SENTINEL
+    low_a, low_ca = ka[real_a] - (1 << 62), ca[real_a]  # every key of A below every key of B
     cases = {
         "heavy duplication": (dup_a, counts_for(dup_a, 3), dup_b, counts_for(dup_b, 4)),
+        "a run shared across tiles": (run_a, counts_for(run_a, 6), run_b, counts_for(run_b, 7)),
         "a empty": (empty, empty, kb, cb),
+        "b empty": (ka, ca, empty, empty),
+        "every key of a below b": (low_a, low_ca, kb, cb),
+        "every key of b below a": (kb, cb, low_a, low_ca),
         "one row each": (ka[:1], ca[:1], ka[:1], cb[:1]),
+        "a single row": (kb[777:778], cb[777:778], ka, ca),
         "odd lengths": (ka[:2049], ca[:2049], kb[:6143], cb[:6143]),
+        "not multiples of the tile": (ka[: tile + 1], ca[: tile + 1], kb[: 3 * tile - 3], cb[: 3 * tile - 3]),
+        "starts off 16-byte boundaries": (ka[1:], ca[1:], kb[3:], cb[3:]),
         "sentinel tail": (ka, ca, sent_b, cb),
         "chunk tables": (ka, ca, kb, cb),
         "last-merge shape": big,
@@ -956,6 +983,7 @@ def kernels_fold(clean):
             "bit-equal to plain")
     n_chunk = ka.numel() + kb.numel()
     chunk_ms = median_ms(lambda: merge_tables(ka, ca, kb, cb))
+    _, _, _, chunk_prof = device_profile(lambda: merge_tables(ka, ca, kb, cb), reps=5, warm=True)
     n_big = big_a.numel() + big_b.numel()
     k9_ms = median_ms(lambda: merge_tables(*big))
     k9_plain_ms = median_ms(lambda: merge_tables_plain(*big))
@@ -964,11 +992,14 @@ def kernels_fold(clean):
     # with its indices
     k9_lib_ms = median_ms(lambda: torch.sort(cat, stable=True))
     del cat
-    k9_us = device_us(lambda: merge_tables(*big), "merge_tables_kernel")
-    log(f"[kernels] K9 at {ka.numel()} + {kb.numel()} rows: kernel {chunk_ms:.4f} ms; at "
+    _, _, _, big_prof = device_profile(lambda: merge_tables(*big), reps=5, warm=True)
+    k9_us = 1e6 * sum(secs / calls for name, (calls, secs) in big_prof.items() if "k9_" in name and calls)
+    chunk_us = 1e6 * sum(secs / calls for name, (calls, secs) in chunk_prof.items() if "k9_" in name and calls)
+    log(f"[kernels] K9 at {ka.numel()} + {kb.numel()} rows: kernel {chunk_ms:.4f} ms ({chunk_us:.1f} us "
+        f"of device time: {per_launch(chunk_prof, 'k9_')}), bound {bound_ms(32 * n_chunk):.4f} ms; at "
         f"{big_a.numel()} + {big_b.numel()} rows: kernel {k9_ms:.4f} ms ({k9_us:.1f} us of device "
-        f"time), plain {k9_plain_ms:.4f} ms, torch.sort with indices {k9_lib_ms:.4f} ms, bound "
-        f"{bound_ms(32 * n_big):.4f} ms")
+        f"time: {per_launch(big_prof, 'k9_')}), plain {k9_plain_ms:.4f} ms, torch.sort with indices "
+        f"{k9_lib_ms:.4f} ms, bound {bound_ms(32 * n_big):.4f} ms")
     del big, big_a, big_b
 
     # K10 on chunk tables: K = 31 (2^20), six-frame K = 7 (2^21), K = 47
@@ -1022,15 +1053,24 @@ def kernels_fold(clean):
 
 
 def _kernel_label(name: str) -> str:
-    """``bitonic_pass_kernel`` of a profiler name such as
-    ``(anonymous namespace)::bitonic_pass_kernel(long*, long, int, int)``."""
-    return name[name.find("bitonic_"):].split("(")[0]
+    """``k11_tile_kernel<16>`` of a profiler name such as
+    ``(anonymous namespace)::k11_tile_kernel<16>(long const*, long*, long, int, bool)``
+    (K9's and K11's kernels are named ``k9_...`` and ``k11_...``)."""
+    start = min(i for i in (name.find("k9_"), name.find("k11_"), len(name)) if i >= 0)
+    return name[start:].split("(")[0]
+
+
+def per_launch(per_name: dict, marker: str) -> str:
+    """Device time per launch of each kernel whose name holds ``marker``."""
+    return ", ".join(f"{_kernel_label(name)} {calls:g} launches, {1e6 * secs / calls:.1f} us each"
+                     for name, (calls, secs) in per_name.items() if marker in name and calls)
 
 
 def kernels_sort():
     """K11 against its plain version on edge cases and at ``SORT_SHAPES``,
-    the full sort also against ``torch.sort``; returns the entries of the
-    local pass and of the full sort for the kernels line."""
+    the full sort also against ``torch.sort``; times at ``SORT_TIMED``;
+    returns the entries of the local pass and of the full sort for the
+    kernels line."""
     import torch
 
     from kmers_tpu_torch.convert import SENTINEL
@@ -1055,6 +1095,10 @@ def kernels_sort():
     extremes[5::89] = hi
     sentinels = keys.clone()
     sentinels[torch.rand(2 * tile, generator=g, device=dev) < 0.3] = SENTINEL
+    # runs of one key longer than a tile, so that equal keys meet at every
+    # merge round's run boundaries: in order, reversed and shuffled
+    runs = torch.arange(1 << 18, device=dev) // 12_289
+    shuffled = runs[torch.randperm(runs.numel(), generator=g, device=dev)]
     cases = {
         "n = tile": keys[:tile].contiguous(),
         "n = 2 tiles": keys,
@@ -1064,6 +1108,11 @@ def kernels_sort():
         "reverse sorted": torch.sort(keys, descending=True).values,
         "INT64_MIN and INT64_MAX present": extremes,
         "30 % sentinels": sentinels,
+        "duplicate runs across merge rounds": runs,
+        "duplicate runs across merge rounds, reversed": torch.flip(runs, [0]),
+        "duplicate runs across merge rounds, shuffled": shuffled,
+        "few distinct keys": shuffled % 3 - 1,
+        "starts off a 16-byte boundary": rand(2 * tile + 2)[1 : 2 * tile + 1],
     }
     err = 0.0
     for name, keys in cases.items():
@@ -1084,7 +1133,10 @@ def kernels_sort():
         require(torch.equal(got, torch.sort(keys).values), f"K11 full sort != torch.sort at {n}")
         log(f"[kernels] K11 at {n} keys: local pass (tile {tile}) bit-equal to plain, full sort "
             "bit-equal to plain and to torch.sort")
-    n = SORT_SHAPES[-1]
+        if n == SORT_TIMED:
+            timed = keys
+        del got, local
+    n, keys = SORT_TIMED, timed
     ms = median_ms(lambda: bitonic_sort(keys))
     plain_ms = median_ms(lambda: bitonic_sort_plain(keys), reps=5)
     lib_ms = median_ms(lambda: torch.sort(keys))
@@ -1093,14 +1145,13 @@ def kernels_sort():
     # all tiles ascending: the nearest PyTorch call to the local pass, not the same function
     seg_ms = median_ms(lambda: torch.sort(keys.view(-1, tile), dim=1))
     _, _, _, per_name = device_profile(lambda: bitonic_sort(keys), reps=3, warm=True)
-    kernels = {name: v for name, v in per_name.items() if "bitonic_" in name}
-    device_ms = 1e3 * sum(secs for _, secs in kernels.values())
+    device_ms = 1e3 * sum(secs for name, (_, secs) in per_name.items() if "k11_" in name)
+    _, _, _, local_prof = device_profile(lambda: bitonic_local_sort(keys, tile), reps=3, warm=True)
     log(f"[kernels] K11 at {n} keys: bitonic_sort {ms:.4f} ms ({device_ms:.4f} ms of device time: "
-        + ", ".join(f"{_kernel_label(name)} {calls:g} launches, {1e6 * secs / calls:.1f} us each"
-                    for name, (calls, secs) in kernels.items() if calls)
-        + f"), plain {plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms; local pass {local_ms:.4f} ms, "
-        f"plain {local_plain_ms:.4f} ms, torch.sort of the {n // tile} tiles (all ascending) "
-        f"{seg_ms:.4f} ms; bound {bound_ms(16 * n):.4f} ms")
+        f"{per_launch(per_name, 'k11_')}), plain {plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms; local "
+        f"pass {local_ms:.4f} ms ({per_launch(local_prof, 'k11_')}), plain {local_plain_ms:.4f} ms, "
+        f"torch.sort of the {n // tile} tiles (all ascending) {seg_ms:.4f} ms; bound "
+        f"{bound_ms(16 * n):.4f} ms")
     common = dict(route="cuda", source="kmers_tpu_torch/csrc/sort_kernel.cu", max_abs_err=err,
                   # an 8-byte key read once and written once
                   bound_ms=bound_ms(16 * n), bound_by="bytes")
@@ -1847,13 +1898,9 @@ def phase_sort(chrom: np.ndarray, smi: str) -> dict:
         probe_ms = median_ms(lambda: probe(k), reps=10)
         default_ms = median_ms(lambda: sort_count(k), reps=10)
         _, _, _, per_name = device_profile(lambda: bitonic_sort(k), reps=2, warm=True)
-        kernels = {n_: v for n_, v in per_name.items() if "bitonic_" in n_}
         log(f"[sort] probe on {name} ({k.numel()} keys, {n_unique} distinct): K1 keys -> K11 -> K2 "
             f"{probe_ms:.4f} ms, K1 keys -> torch.sort -> K2 {default_ms:.4f} ms (CUDA events), "
-            f"bit-equal; K11 device time "
-            + ", ".join(f"{_kernel_label(n_)} {calls:g} launches, {1e6 * secs / calls:.1f} us each"
-                        for n_, (calls, secs) in kernels.items() if calls)
-            + f" ({smi})")
+            f"bit-equal; K11 device time {per_launch(per_name, 'k11_')} ({smi})")
     log(f"[sort] launches during the probe: {launches}")
     return launches
 

@@ -16,16 +16,19 @@
 //
 // What bounds them on an H100: both read each input row once and write each
 // output row once (16 bytes a one-word row), with O(log) integer work a row,
-// so both are bound by device memory.
+// so both are bound by device memory (3.35 TB/s).
 //
-// K9 design: the TPU network's strides fit its (8, W) tiles; on Hopper a
-// merge path needs no network.  Each block owns kMergeTile consecutive
-// output positions.  Two threads find the block's co-ranks (how many rows of
-// A precede its first and its last output, A first on ties) by binary search
-// over the whole tables; every thread then searches only inside the block's
-// ranges for the co-rank of its own first output, merges its kMergeItems
-// outputs sequentially into shared memory, and the block writes them out
-// coalesced.  Indices are int64: two 2^30-row tables fit on an 80 GB card.
+// K9 design: the partitioned merge path of merge_path.cuh, with the counts
+// as its payload, in two launches.  k9_partition_kernel finds the co-rank of
+// every tile's first output (A first on ties) with one thread a tile, so
+// thousands of threads hide the ~26 dependent loads of the search over the
+// whole tables; k9_merge_kernel stages each tile's A and B ranges (keys and
+// counts, one tile of rows in all) in shared memory with 16-byte cp.async,
+// merges from there into registers (kMergeItems = 16 outputs a thread,
+// 4,096 a block, 68 KB of shared memory, three blocks an SM) and writes the
+// tile out with 16-byte stores.  Every row is read from device memory once,
+// coalesced, and written once; only the co-ranks are read twice.  Indices
+// are int64: two 2^30-row tables fit on an 80 GB card.
 //
 // K10 design: the TPU kernel carried "tile plus next tile" state from one
 // grid step to the next; CUDA blocks run in no order, so compaction takes
@@ -37,12 +40,9 @@
 // the sentinel in every word and count 0.  Word planes of a (W, n) table
 // are strided by n and move together.
 #include "common.cuh"
+#include "merge_path.cuh"
 
 namespace {
-
-constexpr int kMergeThreads = 256;
-constexpr int kMergeItems = 8;
-constexpr int kMergeTile = kMergeThreads * kMergeItems;  // outputs a block
 
 constexpr int kCompactThreads = 256;
 constexpr int kCompactItems = 8;
@@ -50,66 +50,15 @@ constexpr int kCompactTile = kCompactThreads * kCompactItems;  // rows a block
 constexpr int kCompactWarps = kCompactThreads / 32;
 constexpr int kScanThreads = 1024;
 
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
-
-// The number of rows of A among the first d outputs of the merge, A first
-// on ties: the least i in [lo, hi] with a[i] > b[d - i - 1].  The caller
-// keeps max(0, d - nb) <= lo <= hi <= min(d, na), so every index read is in
-// range.
-__device__ __forceinline__ int64_t co_rank(const int64_t* __restrict__ a,
-                                           const int64_t* __restrict__ b,
-                                           int64_t d, int64_t lo, int64_t hi) {
-    while (lo < hi) {
-        const int64_t mid = lo + (hi - lo) / 2;
-        if (a[mid] <= b[d - mid - 1]) lo = mid + 1; else hi = mid;
-    }
-    return lo;
+__global__ void __launch_bounds__(kmers::kMergeThreads)
+k9_partition_kernel(kmers::MergeSpec s, int64_t tiles, int64_t* __restrict__ corank) {
+    kmers::merge_partition(s, tiles, corank);
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
-merge_tables_kernel(const int64_t* __restrict__ ka, const int64_t* __restrict__ ca,
-                    int64_t na, const int64_t* __restrict__ kb,
-                    const int64_t* __restrict__ cb, int64_t nb,
-                    int64_t* __restrict__ keys, int64_t* __restrict__ counts) {
-    __shared__ int64_t s_keys[kMergeTile];
-    __shared__ int64_t s_counts[kMergeTile];
-    __shared__ int64_t s_split[2];
-    const int64_t n = na + nb;
-    const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kMergeTile;
-    const int64_t tile1 = imin(tile0 + kMergeTile, n);
-    if (threadIdx.x < 2) {
-        const int64_t d = threadIdx.x ? tile1 : tile0;
-        s_split[threadIdx.x] = co_rank(ka, kb, d, imax(0, d - nb), imin(d, na));
-    }
-    __syncthreads();
-    // the block merges a[a0, a1) with b[b0, b1)
-    const int64_t a0 = s_split[0], a1 = s_split[1];
-    const int64_t b0 = tile0 - a0, b1 = tile1 - a1;
-    const int local = threadIdx.x * kMergeItems;
-    const int64_t d = tile0 + local;
-    if (d < tile1) {
-        int64_t i = co_rank(ka, kb, d, imax(a0, d - b1), imin(a1, d - b0));
-        int64_t j = d - i;
-        const int m = static_cast<int>(imin(kMergeItems, tile1 - d));
-        for (int k = 0; k < m; ++k) {
-            const bool take_a = j >= b1 || (i < a1 && ka[i] <= kb[j]);
-            if (take_a) {
-                s_keys[local + k] = ka[i];
-                s_counts[local + k] = ca[i];
-                ++i;
-            } else {
-                s_keys[local + k] = kb[j];
-                s_counts[local + k] = cb[j];
-                ++j;
-            }
-        }
-    }
-    __syncthreads();
-    for (int64_t t = threadIdx.x; t < tile1 - tile0; t += kMergeThreads) {
-        keys[tile0 + t] = s_keys[t];
-        counts[tile0 + t] = s_counts[t];
-    }
+__global__ void __launch_bounds__(kmers::kMergeThreads, 3)
+k9_merge_kernel(kmers::MergeSpec s, const int64_t* __restrict__ corank) {
+    extern __shared__ int64_t smem[];
+    kmers::merge_tile<true>(s, corank, smem, smem + kmers::kMergePlane);
 }
 
 // (1) real rows (count > 0) of each tile
@@ -132,7 +81,7 @@ compact_scan_kernel(const int64_t* __restrict__ tile_totals, int64_t m,
     __shared__ int64_t s[kScanThreads];
     const int64_t per = (m + kScanThreads - 1) / kScanThreads;
     const int64_t begin = threadIdx.x * per;
-    const int64_t end = imin(begin + per, m);
+    const int64_t end = kmers::imin64(begin + per, m);
     int64_t sum = 0;
     for (int64_t i = begin; i < end; ++i) sum += tile_totals[i];
     s[threadIdx.x] = sum;
@@ -197,20 +146,39 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
 
 }  // namespace
 
-// keys, counts: int64[na + nb], the merge of (ka, ca) and (kb, cb), each
-// sorted ascending by key.
+// Outputs a K9 block owns (kmers_tpu_torch/ops/kernels/merge_kernel.py
+// MERGE_TILE): k9_merge_tables takes ceil((na + nb) / k9_merge_tile())
+// int64 of scratch.
+extern "C" int k9_merge_tile() { return kmers::kMergeTile; }
+
+// keys, counts: int64[na + nb], 16-byte aligned, the merge of (ka, ca) and
+// (kb, cb), each sorted ascending by key; scratch: int64[tiles], tiles =
+// ceil((na + nb) / k9_merge_tile()).
 extern "C" int k9_merge_tables(const void* ka, const void* ca, long long na,
                                const void* kb, const void* cb, long long nb,
-                               void* keys, void* counts, void* stream) {
+                               void* scratch, long long tiles, void* keys,
+                               void* counts, void* stream) {
     const long long n = na + nb;
-    if (n > 0) {
-        const long long blocks = (n + kMergeTile - 1) / kMergeTile;
-        merge_tables_kernel<<<static_cast<unsigned>(blocks), kMergeThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const int64_t*>(ka), static_cast<const int64_t*>(ca), na,
-            static_cast<const int64_t*>(kb), static_cast<const int64_t*>(cb), nb,
-            static_cast<int64_t*>(keys), static_cast<int64_t*>(counts));
-    }
+    if (na < 0 || nb < 0 || tiles != kmers::merge_tiles(n) || !kmers::aligned16(keys) ||
+        !kmers::aligned16(counts))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return static_cast<int>(cudaGetLastError());
+    const auto st = static_cast<cudaStream_t>(stream);
+    kmers::MergeSpec s{static_cast<const int64_t*>(ka), static_cast<const int64_t*>(kb),
+                       static_cast<const int64_t*>(ca), static_cast<const int64_t*>(cb),
+                       na, nb, 0, n, static_cast<int64_t*>(keys),
+                       static_cast<int64_t*>(counts)};
+    auto* corank = static_cast<int64_t*>(scratch);
+    const size_t smem = kmers::merge_smem(true);
+    cudaError_t err = cudaFuncSetAttribute(
+        k9_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long part_blocks = (tiles + kmers::kMergeThreads - 1) / kmers::kMergeThreads;
+    k9_partition_kernel<<<static_cast<unsigned>(part_blocks), kmers::kMergeThreads, 0, st>>>(
+        s, tiles, corank);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k9_merge_kernel<<<static_cast<unsigned>(tiles), kmers::kMergeThreads, smem, st>>>(s, corank);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,98 +1,210 @@
-// K11: bitonic sort of int64 keys (the port's key format, signed ascending).
+// K11: sort of int64 keys (the port's key format, signed ascending): the
+// bitonic local pass, and the full sort as that pass followed by merge-path
+// rounds.
 //
 // Replaces the TPU kernels kmers_tpu/ops/pallas/sort_kernel.py
-// bitonic_local_sort_pallas (the local pass) and bitonic_sort_pallas (the
-// cross-tile stages and their fused in-tile tails).  The network is the
-// textbook one: stage k = 1 .. log2(n) runs the compare-exchange steps of
-// strides 2^(k-1) .. 1 on the pairs (i, i + d) with i's bit j clear, and
-// orders each pair descending where bit k of i is set ((pos >> k) & 1, the
-// direction rule of the TPU kernel), so after stage k every run of 2^k keys
-// is sorted, alternately ascending and descending, and after the last stage
-// the whole array is ascending.
+// bitonic_local_sort_pallas (every tile sorted, the direction following the
+// network's rule (pos >> k) & 1 of the global position, so consecutive tiles
+// come out ascending, descending, ...) and bitonic_sort_pallas (the full
+// ascending sort).
 //
 // What bounds it on an H100: a sort reads and writes each 8-byte key at
-// least once (16 bytes a key), and that is the bound the port reports; the
-// network itself moves the keys through device memory once for the local
-// pass, once for every cross-tile step and once for every tail, so at
-// n = 2^24 with a tile of 2^13 it makes 78 round trips (1 local, 66
-// cross-tile, 11 tails) where the bound counts one.  It is a simple, correct first kernel,
-// slower than torch.sort by design; register-level sub-sorts, warp shuffles
-// for small strides and a merge-based cross-tile step are later work.
+// least once (16 bytes a key over 3.35 TB/s), and that is the bound the port
+// reports.  A bitonic network's cross-tile steps each move every key through
+// device memory (78 passes at n = 2^24 with a tile of 8,192), and a tile's
+// 91 compare-exchange steps in shared memory need a barrier each.  So the
+// network stays inside the block, mostly in registers, and merges take the
+// place of the cross-tile stages:
 //
-// Design, and where the TPU design does not carry over:
-// - Local pass (bitonic_tile_kernel over stages 1 .. log2(tile)): one block
-//   sorts one tile in dynamic shared memory; each thread runs the pairs
-//   p = t, t + blockDim, ... of a step, with a barrier between steps.  The
-//   direction comes from the key's global position, so consecutive tiles
-//   come out ascending, descending, ascending, ... as on the TPU.
-// - Cross-tile strides (d >= tile): bitonic_pass_kernel, one thread per
-//   pair in device memory.
-// - Tail of a cross-tile stage k (strides tile/2 .. 1): the tile kernel
-//   again, for that one stage, in place.
-// - The TPU's tile is 8 x 4096 = 32,768 u32 pairs (256 KB as int64), more
-//   than an H100 block can address (227 KB of dynamic shared memory after
-//   cudaFuncSetAttribute, 48 KB without).  The tile is a runtime argument
-//   (a power of two, at most kMaxTile = 16,384 keys = 128 KB); the port's
-//   default is 8,192 keys (64 KB, so three blocks fit on one SM's 228 KB),
-//   in ops/kernels/sort_kernel.py.
-// - Indices are int64 and the direction bit is taken from a 64-bit
-//   position, so 2^26 keys and more are addressed without overflow.
-// - Equal keys are exchanged or not with the same result: a sort of keys
-//   alone has no ties to break.
+// - k11_tile_kernel<kR> sorts a block of kSortThreads * kR keys in
+//   registers: each thread holds kR consecutive keys, loaded and stored
+//   through shared memory with 16-byte device-memory accesses.  Strides
+//   below kR run inside the thread with no barrier; strides kR .. 16 kR run
+//   across the warp by __shfl_xor_sync; only strides of 32 kR and above go
+//   through shared memory, each step with one barrier (10 of the 91 steps
+//   for a tile of 8,192 keys at kR = 16).  Shared memory is
+//   XOR-swizzled so that a warp's kR-strided register stores and loads fall
+//   on distinct banks.  kR = 16 (512 threads, 64 KB, two blocks an SM) takes
+//   tiles up to 8,192 keys; kR = 32 (128 KB) the largest tile, 16,384.  The
+//   local pass runs the network's stages 1 .. log2(tile) with the TPU's
+//   direction rule; the full sort runs them with the last stage ascending
+//   in every tile, so that its runs are all ascending.
+// - k11_merge_rounds: log2(n / tile) rounds, each merging neighbouring
+//   sorted runs pairwise by the merge path of merge_path.cuh (no payload),
+//   from one buffer into the other: each round reads and writes every key
+//   once, coalesced, with one partition launch (a co-rank a tile of 4,096
+//   outputs) and one merge launch.  At n = 2^24 that is 12 passes over the
+//   keys: the tile sort and 11 rounds.
+//
+// Indices are int64, so 2^26 keys and more are addressed without overflow.
+// Equal keys are exchanged or not with the same result: a sort of keys
+// alone has no ties to break.
 #include "common.cuh"
+#include "merge_path.cuh"
 
 namespace {
 
-constexpr int kMaxTile = 16384;     // keys a block holds: 128 KB of shared memory
-constexpr int kTileThreads = 512;
-constexpr int kPairThreads = 256;
+constexpr int kSortThreads = 512;
+constexpr int kWarpLanes = 32;
 
 // a at the lower position: ascending leaves the smaller key there
 __device__ __forceinline__ void compare_exchange(int64_t& a, int64_t& b, bool desc) {
-    if (desc ? a < b : b < a) {
-        const int64_t t = a;
-        a = b;
-        b = t;
-    }
+    const bool swap = (b < a) != desc;
+    const int64_t x = a;
+    a = swap ? b : a;
+    b = swap ? x : b;
 }
 
-// Stages k_first .. k_last of the network on the block's tile of `tile`
-// keys: stage k runs the strides 2^(min(k, log_tile) - 1) .. 1.  `in` and
-// `out` may be the same array (a block reads its whole tile first).
-__global__ void __launch_bounds__(kTileThreads)
-bitonic_tile_kernel(const int64_t* in, int64_t* out, int tile, int log_tile,
-                    int k_first, int k_last) {
+// Shared-memory word of position p of the block: the low four bits XOR the
+// low four bits of the position's thread, so that for a fixed register r
+// the positions t kR + r of 16 consecutive threads fall on 16 distinct
+// 8-byte banks.  The swizzle stays inside a thread's kR positions.
+template <int kLogR>
+__device__ __forceinline__ int swz(int p) {
+    return p ^ ((p >> kLogR) & 15);
+}
+
+// Every tile of 2^log_tile keys of in[block's range] sorted into out by the
+// network's stages 1 .. log_tile.  Positions at or past n (the last block's
+// tail) hold padding that never meets a real key: the network's pairs stay
+// inside one tile, and the tile divides n.
+template <int kR>
+__global__ void __launch_bounds__(kSortThreads, kR <= 16 ? 2 : 1)
+k11_tile_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out, int64_t n,
+                int log_tile, bool all_asc) {
+    constexpr int kLogR = kR == 16 ? 4 : 5;
+    static_assert((1 << kLogR) == kR, "kR is 16 or 32");
+    constexpr int kCap = kSortThreads * kR;
+    constexpr int kLogWarp = kLogR + 5;  // strides below 2^kLogWarp stay in the warp
+    constexpr int kLogCap = kLogWarp + 4;  // 16 warps
+    static_assert((1 << kLogCap) == kCap, "512 threads");
     extern __shared__ int64_t s[];
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) s[i] = in[base + i];
+    const int t = threadIdx.x;
+    const int lane = t & (kWarpLanes - 1);
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * kCap;
+    const int len = static_cast<int>(n - base < kCap ? n - base : kCap);
+
+    // load: 16-byte reads of device memory where `in` allows, into the
+    // swizzled layout
+    const int64_t* src = in + base;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const longlong2* v = reinterpret_cast<const longlong2*>(src);
+#pragma unroll 4
+        for (int q = t; q < kCap / 2; q += kSortThreads) {
+            longlong2 x = make_longlong2(KMERS_SENTINEL, KMERS_SENTINEL);
+            if (2 * q + 1 < len) x = v[q];
+            else if (2 * q < len) x.x = src[2 * q];
+            s[swz<kLogR>(2 * q)] = x.x;
+            s[swz<kLogR>(2 * q + 1)] = x.y;
+        }
+    } else {
+        for (int i = t; i < kCap; i += kSortThreads)
+            s[swz<kLogR>(i)] = i < len ? src[i] : KMERS_SENTINEL;
+    }
     __syncthreads();
-    const int half = tile >> 1;
-    for (int k = k_first; k <= k_last; ++k) {
-        const int top = (k < log_tile ? k : log_tile) - 1;
-        for (int j = top; j >= 0; --j) {
-            const int d = 1 << j;
-            for (int p = threadIdx.x; p < half; p += blockDim.x) {
-                const int i = ((p >> j) << (j + 1)) | (p & (d - 1));
-                compare_exchange(s[i], s[i + d], ((base + i) >> k) & 1);
+    int64_t v[kR];
+    const int first = t * kR;  // the thread's positions first .. first + kR - 1
+#pragma unroll
+    for (int r = 0; r < kR; ++r) v[r] = s[swz<kLogR>(first + r)];
+
+    // Stage k orders a pair descending where bit k of its global position is
+    // set (the TPU's rule), except in the last stage under all_asc.  Bit k of
+    // base + p is bit k of p below kLogCap, and a bit of the block index above.
+    const unsigned block = blockIdx.x;
+    auto bit = [block](unsigned p, int k) -> bool {
+        return k < kLogCap ? (p >> k) & 1u : (block >> (k - kLogCap)) & 1u;
+    };
+    // stages 1 .. kLogR - 1 hold only strides below kR, inside the thread;
+    // the direction of register r is bit k of r (first is a multiple of kR),
+    // known at compile time
+#pragma unroll
+    for (int k = 1; k < kLogR; ++k) {
+        if (k <= log_tile) {
+            const bool asc = all_asc && k == log_tile;
+#pragma unroll
+            for (int j = k - 1; j >= 0; --j) {
+#pragma unroll
+                for (int r = 0; r < kR; ++r)
+                    if ((r & (1 << j)) == 0)
+                        compare_exchange(v[r], v[r | (1 << j)], !asc && ((r >> k) & 1));
             }
-            __syncthreads();
         }
     }
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) out[base + i] = s[i];
+    for (int k = kLogR; k <= log_tile; ++k) {
+        const bool asc = all_asc && k == log_tile;
+        const int top = k - 1;  // stage k's strides are 2^top .. 1
+        if (top >= kLogWarp) {
+            // strides of 32 kR and up: one thread a pair in shared memory
+#pragma unroll
+            for (int r = 0; r < kR; ++r) s[swz<kLogR>(first + r)] = v[r];
+            __syncthreads();
+            for (int j = top; j >= kLogWarp; --j) {
+                const int d = 1 << j;
+#pragma unroll
+                for (int q = t; q < kCap / 2; q += kSortThreads) {
+                    const int lo = ((q >> j) << (j + 1)) | (q & (d - 1));
+                    const int a = swz<kLogR>(lo), b = swz<kLogR>(lo + d);
+                    int64_t x = s[a], y = s[b];
+                    compare_exchange(x, y, !asc && bit(lo, k));
+                    s[a] = x;
+                    s[b] = y;
+                }
+                __syncthreads();
+            }
+#pragma unroll
+            for (int r = 0; r < kR; ++r) v[r] = s[swz<kLogR>(first + r)];
+        }
+        // from here on bit k is the same for all of the thread's positions
+        const bool desc = !asc && bit(first, k);
+        // strides kR .. 16 kR: the partner is lane ^ (d / kR), same register
+#pragma unroll
+        for (int j = kLogWarp - 1; j >= kLogR; --j) {
+            if (j <= top) {
+                const int m = 1 << (j - kLogR);
+                const bool keep_max = ((lane & m) == 0) == desc;
+#pragma unroll
+                for (int r = 0; r < kR; ++r) {
+                    const int64_t other = static_cast<int64_t>(__shfl_xor_sync(
+                        0xFFFFFFFFu, static_cast<long long>(v[r]), m));
+                    v[r] = (other < v[r]) != keep_max ? other : v[r];
+                }
+            }
+        }
+        // strides below kR: inside the thread
+#pragma unroll
+        for (int j = kLogR - 1; j >= 0; --j) {
+            if (j <= top) {
+#pragma unroll
+                for (int r = 0; r < kR; ++r)
+                    if ((r & (1 << j)) == 0) compare_exchange(v[r], v[r | (1 << j)], desc);
+            }
+        }
+    }
+
+    // store: through the swizzled layout, 16-byte writes (out is aligned)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) s[swz<kLogR>(first + r)] = v[r];
+    __syncthreads();
+    int64_t* dst = out + base;
+    longlong2* w = reinterpret_cast<longlong2*>(dst);
+    for (int q = t; q < kCap / 2; q += kSortThreads) {
+        if (2 * q + 1 < len) w[q] = make_longlong2(s[swz<kLogR>(2 * q)], s[swz<kLogR>(2 * q + 1)]);
+        else if (2 * q < len) dst[2 * q] = s[swz<kLogR>(2 * q)];
+    }
 }
 
-// One compare-exchange step of stride 2^j in stage k over device memory.
-__global__ void __launch_bounds__(kPairThreads)
-bitonic_pass_kernel(int64_t* __restrict__ keys, int64_t pairs, int j, int k) {
-    const int64_t p = static_cast<int64_t>(blockIdx.x) * kPairThreads + threadIdx.x;
-    if (p >= pairs) return;
-    const int64_t d = static_cast<int64_t>(1) << j;
-    const int64_t i = ((p >> j) << (j + 1)) | (p & (d - 1));
-    int64_t a = keys[i], b = keys[i + d];
-    compare_exchange(a, b, (i >> k) & 1);
-    keys[i] = a;
-    keys[i + d] = b;
+__global__ void __launch_bounds__(kmers::kMergeThreads)
+k11_partition_kernel(kmers::MergeSpec s, int64_t tiles, int64_t* __restrict__ corank) {
+    kmers::merge_partition(s, tiles, corank);
 }
+
+__global__ void __launch_bounds__(kmers::kMergeThreads, 4)
+k11_round_kernel(kmers::MergeSpec s, const int64_t* __restrict__ corank) {
+    extern __shared__ int64_t smem[];
+    kmers::merge_tile<false>(s, corank, smem, nullptr);
+}
+
+constexpr int kMaxTile = kSortThreads * 32;  // 16,384 keys: 128 KB of shared memory
 
 int log2_of(long long v) {
     int m = 0;
@@ -101,61 +213,77 @@ int log2_of(long long v) {
 }
 
 bool valid_tile(long long n, int tile) {
-    return tile >= 1 && tile <= kMaxTile && (tile & (tile - 1)) == 0 && n % tile == 0;
+    return n >= 0 && tile >= 1 && tile <= kMaxTile && (tile & (tile - 1)) == 0 &&
+           n % tile == 0;
 }
 
+template <int kR>
 cudaError_t launch_tiles(const int64_t* in, int64_t* out, long long n, int tile,
-                         int k_first, int k_last, cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(tile) * sizeof(int64_t);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            bitonic_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-    }
-    const int threads = tile / 2 < 1 ? 1 : (tile / 2 < kTileThreads ? tile / 2 : kTileThreads);
-    bitonic_tile_kernel<<<static_cast<unsigned>(n / tile), threads, smem, stream>>>(
-        in, out, tile, log2_of(tile), k_first, k_last);
+                         bool all_asc, cudaStream_t stream) {
+    constexpr int kCap = kSortThreads * kR;
+    const size_t smem = static_cast<size_t>(kCap) * sizeof(int64_t);
+    const cudaError_t err = cudaFuncSetAttribute(
+        k11_tile_kernel<kR>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const long long blocks = (n + kCap - 1) / kCap;
+    k11_tile_kernel<kR><<<static_cast<unsigned>(blocks), kSortThreads, smem, stream>>>(
+        in, out, n, log2_of(tile), all_asc);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// The largest tile the kernel takes (keys held in one block's shared memory).
+// The largest tile the kernel takes (keys held in one block).
 extern "C" int k11_max_tile() { return kMaxTile; }
 
-// out: int64[n], every tile of `in` sorted, the tile at position t * tile
-// ascending for even t and descending for odd t.  tile a power of two, at
-// most k11_max_tile(), dividing n.
-extern "C" int k11_bitonic_local(const void* in, void* out, long long n, int tile,
-                                 void* stream) {
-    if (!valid_tile(n, tile)) return static_cast<int>(cudaErrorInvalidValue);
+// out: int64[n], 16-byte aligned, every tile of `in` sorted: with all_asc 0,
+// the tile at position t * tile ascending for even t and descending for odd
+// t (the local pass); with all_asc 1, every tile ascending (the full sort's
+// first step).  tile a power of two, at most k11_max_tile(), dividing n.
+extern "C" int k11_tile_sort(const void* in, void* out, long long n, int tile, int all_asc,
+                             void* stream) {
+    if (!valid_tile(n, tile) || !kmers::aligned16(out))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return static_cast<int>(cudaGetLastError());
-    return static_cast<int>(launch_tiles(static_cast<const int64_t*>(in),
-                                         static_cast<int64_t*>(out), n, tile, 1,
-                                         log2_of(tile), static_cast<cudaStream_t>(stream)));
+    const auto* src = static_cast<const int64_t*>(in);
+    auto* dst = static_cast<int64_t*>(out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = tile <= kSortThreads * 16
+        ? launch_tiles<16>(src, dst, n, tile, all_asc != 0, st)
+        : launch_tiles<32>(src, dst, n, tile, all_asc != 0, st);
+    return static_cast<int>(err);
 }
 
-// The stages above the tile, in place, on keys that went through
-// k11_bitonic_local with the same tile: keys ascending on return.  n a power
-// of two.
-extern "C" int k11_bitonic_merge(void* keys_, long long n, int tile, void* stream) {
-    if (!valid_tile(n, tile) || (n & (n - 1)) != 0)
+// `rounds` merge rounds over n keys that lie in buf0 (buf0 and buf1 16-byte
+// aligned) as ascending runs of
+// `run` keys: round r merges runs of run << r pairwise from one buffer into
+// the other (buf0 -> buf1 -> buf0 ...), so the keys end ascending in
+// runs of run << rounds, in buf1 when rounds is odd and in buf0 when it is
+// even.  scratch: int64[tiles], tiles = n / k9_merge_tile().  n and run are
+// powers of two, 2 run a multiple of k9_merge_tile(), run << rounds at most n.
+extern "C" int k11_merge_rounds(void* buf0, void* buf1, long long n, long long run, int rounds,
+                                void* scratch, long long tiles, void* stream) {
+    if (rounds < 0 || rounds > 40 || run <= 0 || (run & (run - 1)) != 0 || n <= 0 ||
+        (n & (n - 1)) != 0 || n % (2 * run) != 0 ||
+        (2 * run) % kmers::kMergeTile != 0 || (run << rounds) > n ||
+        tiles != kmers::merge_tiles(n) || !kmers::aligned16(buf0) || !kmers::aligned16(buf1))
         return static_cast<int>(cudaErrorInvalidValue);
-    auto* keys = static_cast<int64_t*>(keys_);
-    const auto s = static_cast<cudaStream_t>(stream);
-    const int log_tile = log2_of(tile);
-    const int log_n = log2_of(n);
-    const long long pairs = n / 2;
-    const long long blocks = (pairs + kPairThreads - 1) / kPairThreads;
-    for (int k = log_tile + 1; k <= log_n; ++k) {
-        for (int j = k - 1; j >= log_tile; --j) {
-            bitonic_pass_kernel<<<static_cast<unsigned>(blocks), kPairThreads, 0, s>>>(
-                keys, pairs, j, k);
-            const cudaError_t err = cudaGetLastError();
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
-        const cudaError_t err = launch_tiles(keys, keys, n, tile, k, k, s);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const size_t smem = kmers::merge_smem(false);
+    auto* corank = static_cast<int64_t*>(scratch);
+    int64_t* bufs[2] = {static_cast<int64_t*>(buf0), static_cast<int64_t*>(buf1)};
+    const long long part_blocks = (tiles + kmers::kMergeThreads - 1) / kmers::kMergeThreads;
+    for (int r = 0; r < rounds; ++r, run *= 2) {
+        const int64_t* src = bufs[r & 1];
+        kmers::MergeSpec s{src, src + run, nullptr, nullptr, run, run, 2 * run, n,
+                           bufs[(r + 1) & 1], nullptr};
+        k11_partition_kernel<<<static_cast<unsigned>(part_blocks), kmers::kMergeThreads, 0, st>>>(
+            s, tiles, corank);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        k11_round_kernel<<<static_cast<unsigned>(tiles), kmers::kMergeThreads, smem, st>>>(
+            s, corank);
+        err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     return static_cast<int>(cudaGetLastError());

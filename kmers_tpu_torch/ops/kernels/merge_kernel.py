@@ -9,7 +9,13 @@ computes the functions of those networks:
 
 - :func:`merge_tables`: the rows of two tables sorted ascending by key,
   merged into one sorted table, each count moving with its key; on equal
-  keys A's row comes first.
+  keys A's row comes first.  Bound by device memory (each 16-byte row read
+  once and written once); K9 is a partitioned merge path in two launches:
+  one thread a tile of :data:`MERGE_TILE` outputs finds the tile's co-rank
+  by binary search over the tables (into a scratch of
+  :func:`merge_partitions` co-ranks), then each block stages its tile's A
+  and B rows in shared memory with 16-byte loads, merges them into
+  registers and writes them out with 16-byte stores.
 - :func:`compact_table`: the rows with ``counts > 0`` front-packed in
   order, :data:`~kmers_tpu_torch.convert.SENTINEL`/0 after them, the
   length unchanged.  Keys are ``(n,)`` or ``(W, n)`` word planes, which
@@ -26,7 +32,26 @@ import torch
 from ...convert import SENTINEL
 from . import _build
 
-__all__ = ["merge_tables", "merge_tables_plain", "compact_table", "compact_table_plain"]
+__all__ = [
+    "MERGE_TILE",
+    "compact_table",
+    "compact_table_plain",
+    "merge_partitions",
+    "merge_tables",
+    "merge_tables_plain",
+]
+
+#: outputs one K9 block merges (``kMergeTile`` of ``csrc/merge_path.cuh``:
+#: 256 threads of 16); K11's merge rounds use the same tile
+MERGE_TILE = 4096
+
+
+def merge_partitions(n: int) -> int:
+    """Co-ranks of K9's scratch for ``n`` output rows: one a merge tile."""
+    if n < 0:
+        raise ValueError(f"length {n} must not be negative")
+    return -(-n // MERGE_TILE)
+
 
 def merge_tables_plain(keys_a, counts_a, keys_b, counts_b):
     """Plain torch version of :func:`merge_tables`, on any device: a stable
@@ -54,7 +79,7 @@ def compact_table_plain(keys, counts):
 def _merge_kernel():
     v = ctypes.c_void_p
     ll = ctypes.c_longlong
-    return _build.kernel("k9_merge_tables", (v, v, ll, v, v, ll, v, v, v))
+    return _build.kernel("k9_merge_tables", (v, v, ll, v, v, ll, v, ll, v, v, v))
 
 
 @functools.cache
@@ -99,8 +124,9 @@ def merge_tables(keys_a, counts_a, keys_b, counts_b):
 
     Returns ``(keys, counts)`` of length ``len(keys_a) + len(keys_b)``,
     sorted by key, A's row first on equal keys.  Nothing is summed (the
-    caller's weighted RLE does that).  A CUDA tensor launches K9; a CPU
-    tensor takes :func:`merge_tables_plain`.
+    caller's weighted RLE does that).  A CUDA tensor launches K9 (a
+    partition and a merge launch, counted once); a CPU tensor takes
+    :func:`merge_tables_plain`.
     """
     tensors = (keys_a, counts_a, keys_b, counts_b)
     if any(t.dim() != 1 for t in tensors) or keys_a.shape != counts_a.shape \
@@ -112,11 +138,14 @@ def merge_tables(keys_a, counts_a, keys_b, counts_b):
     keys = torch.empty(na + nb, dtype=torch.int64, device=keys_a.device)
     counts = torch.empty_like(keys)
     if na + nb:
+        tiles = merge_partitions(na + nb)
+        scratch = torch.empty(tiles, dtype=torch.int64, device=keys.device)
         with torch.cuda.device(keys.device):
             stream = torch.cuda.current_stream().cuda_stream
             code = _merge_kernel()(
                 keys_a.data_ptr(), counts_a.data_ptr(), na, keys_b.data_ptr(),
-                counts_b.data_ptr(), nb, keys.data_ptr(), counts.data_ptr(), stream,
+                counts_b.data_ptr(), nb, scratch.data_ptr(), tiles, keys.data_ptr(),
+                counts.data_ptr(), stream,
             )
         _build.check(code, "k9_merge_tables")
         merge_tables.launches += 1
@@ -155,7 +184,7 @@ def compact_table(keys, counts):
     return out_k, out_c
 
 
-#: wrapper calls in this process that launched their kernel (K10's three
-#: launches count once)
+#: wrapper calls in this process that launched their kernel (K9's two and
+#: K10's three launches count once)
 merge_tables.launches = 0
 compact_table.launches = 0

@@ -17,6 +17,7 @@ from kmers_tpu_torch.ops.kernels.general_kernel import (
     windows_k32_plain,
 )
 from kmers_tpu_torch.ops.kernels.merge_kernel import (
+    MERGE_TILE,
     compact_table,
     compact_table_plain,
     merge_tables,
@@ -375,7 +376,7 @@ def test_sixframe_slice_on_cuda_matches_cpu(cuda, K):
 
 def _merge_cases():
     rng = np.random.default_rng(9)
-    tile = 2048  # outputs a K9 block owns (csrc/merge_kernel.cu kMergeTile)
+    tile = MERGE_TILE  # outputs a K9 block owns (csrc/merge_path.cuh kMergeTile)
 
     def table(keys, seed):
         keys = torch.as_tensor(keys, dtype=torch.int64)
@@ -396,6 +397,10 @@ def _merge_cases():
     # equal keys exactly at the block boundaries
     edge = torch.arange(3 * tile) // 2
     empty = torch.zeros(0, dtype=torch.int64)
+    # one key in a run of 2.5 tiles in each table: several tile boundaries,
+    # and so several co-ranks, fall inside the run A and B share
+    run_a = torch.cat([torch.arange(100), torch.full((5 * tile // 2,), 1000), torch.arange(2000, 2100)])
+    run_b = torch.cat([torch.arange(50, 150), torch.full((5 * tile // 2,), 1000), torch.arange(1500, 3000)])
     return {
         "heavy duplication": (table(dup_a, 1), table(dup_b, 2)),
         "ties at block edges": (table(edge[::2], 3), table(edge[1::2], 4)),
@@ -409,6 +414,12 @@ def _merge_cases():
         "sentinel tail b": (table(uniq_a, 19), table(sentinel_tail(uniq_b, 3), 20)),
         "sentinel tails": (table(sentinel_tail(dup_a, 2500), 21), table(sentinel_tail(uniq_b, 14_001), 22)),
         "odd lengths": (table(uniq_a[: tile + 1], 23), table(uniq_b[: 3 * tile - 1], 24)),
+        "a run shared across tiles": (table(run_a, 25), table(run_b, 26)),
+        "every key of a below b": (table(uniq_a - (1 << 62), 27), table(uniq_b, 28)),
+        "every key of b below a": (table(uniq_a, 29), table(uniq_b - (1 << 62), 30)),
+        "single row and empty": (table([-3], 31), table(empty, 32)),
+        "tile minus one and plus one": (table(uniq_a[: tile - 1], 33), table(uniq_b[: tile + 1], 34)),
+        "one tile in all": (table(uniq_a[:1000], 35), table(uniq_b[: tile - 1000], 36)),
     }
 
 
@@ -423,6 +434,26 @@ def test_merge_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert merge_tables.launches == before + (1 if ka.numel() + kb.numel() else 0)
     _assert_same(got, merge_tables_plain(ka, ca, kb, cb))
+
+
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (1, 3)])
+def test_merge_kernel_on_unaligned_views(cuda, offsets):
+    # tables that start 8 bytes past a 16-byte boundary: the staging loads
+    # read a head row alone
+    (ka, ca), (kb, cb) = _merge_cases()["unequal lengths"]
+    oa, ob = offsets
+    args = [x.to(cuda)[o:] for x, o in ((ka, oa), (ca, oa), (kb, ob), (cb, ob))]
+    got = merge_tables(*args)
+    torch.cuda.synchronize()
+    _assert_same(got, merge_tables_plain(ka[oa:], ca[oa:], kb[ob:], cb[ob:]))
+
+
+def test_merge_tile_matches_the_source(cuda):
+    from kmers_tpu_torch.ops.kernels import _build
+
+    fn = _build.library().k9_merge_tile
+    fn.restype = ctypes.c_int
+    assert fn() == MERGE_TILE
 
 
 @pytest.mark.parametrize("words", [1, 2, 5])
@@ -493,6 +524,11 @@ def _sort_cases():
         "int64 extremes": extremes,
         "30 % sentinels": sentinels,
         "few distinct": torch.from_numpy(rng.integers(0, 3, n)),
+        # runs of one key longer than a tile, across every merge round's
+        # boundaries: in order, reversed, and shuffled
+        "long duplicate runs": torch.arange(n) // 12_289,
+        "long duplicate runs reversed": torch.flip(torch.arange(n) // 12_289, [0]),
+        "long duplicate runs shuffled": (torch.arange(n) // 12_289)[torch.from_numpy(rng.permutation(n))],
     }
 
 
@@ -512,7 +548,7 @@ def test_sort_kernel_matches_plain(cuda, name, tile):
     _assert_same([got, local], [bitonic_sort_plain(keys, tile), bitonic_local_sort_plain(keys, tile)])
 
 
-@pytest.mark.parametrize("n", [1, 2, 1024, 8192, 1 << 21])
+@pytest.mark.parametrize("n", [1, 2, 1024, 8192, 16384, 1 << 21, 1 << 22])
 def test_sort_kernel_at_one_tile_and_large_n(cuda, n):
     keys = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << 62, n))
     got = bitonic_sort(keys.to(cuda))
@@ -520,6 +556,33 @@ def test_sort_kernel_at_one_tile_and_large_n(cuda, n):
     _assert_same([got], [torch.sort(keys).values])
     local = bitonic_local_sort(keys.to(cuda), min(n, 8192))
     _assert_same([local], [bitonic_local_sort_plain(keys, min(n, 8192))])
+
+
+def test_sort_kernel_duplicates_across_rounds_at_large_n(cuda):
+    # 2^22 keys of 300 values in runs of 1 to 40,000: equal keys meet at
+    # every round's run boundaries and at its merge-tile boundaries
+    rng = np.random.default_rng(21)
+    n = 1 << 22
+    lengths = rng.integers(1, 40_000, 400)
+    keys = torch.from_numpy(np.repeat(rng.integers(-150, 150, 400), lengths)[:n])
+    keys = torch.cat([keys, torch.full((n - keys.numel(),), 7, dtype=torch.int64)])
+    for order in (keys, torch.flip(keys, [0]), keys[torch.from_numpy(rng.permutation(n))]):
+        on_card = order.to(cuda)
+        got, local = bitonic_sort(on_card), bitonic_local_sort(on_card, MAX_TILE)
+        torch.cuda.synchronize()
+        _assert_same([got, local], [torch.sort(order).values, bitonic_local_sort_plain(on_card, MAX_TILE)])
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_sort_kernel_on_unaligned_views(cuda, offset):
+    # keys that start 8 bytes past a 16-byte boundary: the tile kernel
+    # reads them with 8-byte loads
+    keys = torch.from_numpy(np.random.default_rng(offset).integers(-(1 << 62), 1 << 62, (1 << 16) + 8))
+    view = keys.to(cuda)[offset : offset + (1 << 16)]
+    got, local = bitonic_sort(view), bitonic_local_sort(view, 1024)
+    torch.cuda.synchronize()
+    want = keys[offset : offset + (1 << 16)]
+    _assert_same([got, local], [torch.sort(want).values, bitonic_local_sort_plain(want, 1024)])
 
 
 def test_sort_kernel_max_tile_matches_the_source(cuda):

@@ -17,8 +17,10 @@ from kmers_tpu.ops.pallas.window_kernel import canonical_windows_bytes_flat_pall
 from kmers_tpu_torch.convert import SENTINEL, keys_from_jax, keys_to_jax
 from kmers_tpu_torch.ops import count as tc
 from kmers_tpu_torch.ops.kernels.merge_kernel import (
+    MERGE_TILE,
     compact_table,
     compact_table_plain,
+    merge_partitions,
     merge_tables,
     merge_tables_plain,
 )
@@ -167,6 +169,40 @@ def test_compact_table_checks_its_input():
     with pytest.raises(ValueError):
         merge_tables(torch.zeros(2, dtype=torch.int64), torch.zeros(3, dtype=torch.int64),
                      torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.int64))
+
+
+@pytest.mark.parametrize(
+    "n,tiles",
+    [(0, 0), (1, 1), (MERGE_TILE - 1, 1), (MERGE_TILE, 1), (MERGE_TILE + 1, 2),
+     (1_045_503 + 523_824, 384), (33_000_000 + 14_062_500, 11_490)],
+)
+def test_merge_partitions_give_one_co_rank_a_tile(n, tiles):
+    # K9's scratch: the co-rank of each tile's first output; the last tile
+    # may be short, and its end is the table's end
+    assert merge_partitions(n) == tiles
+    assert (tiles - 1) * MERGE_TILE < n <= tiles * MERGE_TILE or n == tiles == 0
+
+
+def test_merge_partitions_reject_a_negative_length():
+    with pytest.raises(ValueError, match="length"):
+        merge_partitions(-1)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "devices"])
+def test_merge_tables_rejects_what_the_kernel_does_not_take(bad):
+    a = [torch.arange(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64)]
+    b = [torch.arange(3, dtype=torch.int64), torch.ones(3, dtype=torch.int64)]
+    if bad == "dtype":
+        b[1] = b[1].to(torch.int32)
+        with pytest.raises(TypeError):
+            merge_tables(*a, *b)
+    elif bad == "rank":
+        a = [a[0].view(2, 2), a[1].view(2, 2)]
+        with pytest.raises(ValueError):
+            merge_tables(*a, *b)
+    else:
+        with pytest.raises(ValueError):
+            merge_tables(*a, b[0].to("meta"), b[1].to("meta"))
 
 
 def _jax_front_packed(rng, n, top=5000):

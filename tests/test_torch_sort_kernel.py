@@ -17,11 +17,13 @@ import torch
 from kmers_tpu.ops.pallas.sort_kernel import bitonic_local_sort_pallas, bitonic_sort_pallas
 from kmers_tpu_torch.convert import SENTINEL, hashes_from_jax
 from kmers_tpu_torch.ops import bitonic_local_sort, bitonic_sort
+from kmers_tpu_torch.ops.kernels.merge_kernel import MERGE_TILE
 from kmers_tpu_torch.ops.kernels.sort_kernel import (
     DEFAULT_TILE,
     MAX_TILE,
     bitonic_local_sort_plain,
     bitonic_sort_plain,
+    sort_plan,
 )
 
 W = 128
@@ -163,3 +165,37 @@ def test_default_tile_and_empty_input():
     assert torch.equal(local[DEFAULT_TILE:], torch.sort(keys[DEFAULT_TILE:], descending=True).values)
     empty = torch.zeros(0, dtype=torch.int64)
     assert bitonic_sort(empty).shape == (0,) and bitonic_local_sort(empty, 1024).shape == (0,)
+
+
+@pytest.mark.parametrize(
+    "n,plan",
+    [(0, (1, 0, 0)), (1, (1, 0, 0)), (2, (2, 0, 0)), (DEFAULT_TILE, (DEFAULT_TILE, 0, 0)),
+     (2 * DEFAULT_TILE, (DEFAULT_TILE, 1, 2 * DEFAULT_TILE // MERGE_TILE)),
+     (1 << 20, (DEFAULT_TILE, 7, 256)), (1 << 24, (DEFAULT_TILE, 11, 4096)),
+     (1 << 26, (DEFAULT_TILE, 13, 16384))],
+)
+def test_sort_plan_rounds_and_scratch(n, plan):
+    tile, rounds, partitions = sort_plan(n)
+    assert (tile, rounds, partitions) == plan
+    # the tile kernel's runs, doubled once a round, end as one run of n keys
+    assert tile << rounds == max(n, 1)
+    if rounds:
+        # a round's pairs of runs are whole merge tiles, one co-rank each
+        assert (2 * tile) % MERGE_TILE == 0 and partitions * MERGE_TILE == n
+
+
+@pytest.mark.parametrize("n", [-1, 3, 12, 3 * DEFAULT_TILE])
+def test_sort_plan_rejects_lengths_that_are_no_power_of_two(n):
+    with pytest.raises(ValueError, match=f"length {n}"):
+        sort_plan(n)
+
+
+def test_full_sort_tile_argument_only_validates():
+    # the full sort's result does not depend on the tile it is given: every
+    # valid tile gives torch.sort's order, and an invalid one raises first
+    keys = torch.from_numpy(np.random.default_rng(10).integers(-(1 << 62), 1 << 62, 1 << 12))
+    want = torch.sort(keys).values
+    for tile in (1, 16, 1024, 1 << 12):
+        assert torch.equal(bitonic_sort(keys, tile), want)
+    with pytest.raises(ValueError, match="length"):
+        bitonic_sort(keys, 1 << 13)

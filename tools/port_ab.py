@@ -1,0 +1,99 @@
+"""One side of a parent/change comparison of the PyTorch port on one GPU.
+
+    python tools/port_ab.py ROOT TAG
+
+ROOT is a checkout whose ``kmers_tpu_torch`` is measured (the parent
+unpacked with ``git archive`` into a gitignored directory, or the change);
+run it for parent, change, change, parent in one session on one card.  It
+measures, on ``chip_smoke.py``'s synthetic chromosome: K = 31 and six-frame
+K = 7 counting (median wall of three calls, the fold's and K9's CUDA-event
+stream time, K9's device time from ``torch.profiler``, the device's busy
+time), K9 at the K = 31 fold's last-merge shape (33 M + 14 M rows) and K11
+(``bitonic_sort``) against ``torch.sort`` at 2^24 keys.  Prints one line
+``AB {json}``.  The chromosome is cached in ``build/`` of this checkout.
+"""
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+root, tag = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+here = Path(__file__).resolve().parents[1]
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402  (ROOT's copy; its helpers are the same on both sides)
+import kmers_tpu_torch  # noqa: E402
+from kmers_tpu_torch import (  # noqa: E402
+    CountConfig,
+    SixFrameCountConfig,
+    canonical_count_bytes,
+    sixframe_aa_count,
+)
+from kmers_tpu_torch.ops import bitonic_sort  # noqa: E402
+from kmers_tpu_torch.ops import count as count_ops  # noqa: E402
+from kmers_tpu_torch.ops.kernels.merge_kernel import merge_tables  # noqa: E402
+from kmers_tpu_torch.pipelines import _stream  # noqa: E402
+
+if not Path(kmers_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
+    raise SystemExit(f"kmers_tpu_torch came from {kmers_tpu_torch.__file__}, not {root}")
+if not torch.cuda.is_available():
+    raise SystemExit("port_ab: needs a CUDA device")
+
+cache = here / "build" / "chrom21.npy"
+if cache.exists():
+    chrom = np.load(cache)
+else:
+    chrom = cs.synth_chromosome(cs.CHR21_BASES, seed=21)
+    cache.parent.mkdir(exist_ok=True)
+    np.save(cache, chrom)
+#: K9's kernel names before and since its redesign
+K9_NAMES = ("merge_tables_kernel", "k9_")
+out = {"tag": tag, "root": root, "device": torch.cuda.get_device_name(0)}
+
+
+def k9_device_ms(per_name) -> float:
+    return 1e3 * sum(secs for name, (_, secs) in per_name.items() if any(m in name for m in K9_NAMES))
+
+
+for name, fn, module in [
+    ("k31", lambda: canonical_count_bytes(chrom, CountConfig(K=31), device="cuda"),
+     "kmers_tpu_torch.pipelines.canonical_count"),
+    ("aa7", lambda: sixframe_aa_count(chrom, SixFrameCountConfig(K=7), device="cuda"),
+     "kmers_tpu_torch.pipelines.sixframe"),
+]:
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    walls, folds, k9s = [], [], []
+    targets = [(sys.modules[module], "merge_compact_tables"), (_stream, "compact_counts"),
+               (count_ops, "merge_tables")]
+    for _ in range(3):
+        with cs.stream_timers(targets) as fold:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        folds.append(fold["merge_compact_tables"][1] + fold["compact_counts"][1])
+        k9s.append(fold["merge_tables"][1])
+    _, busy, _, per_name = cs.device_profile(fn, 1)
+    out[name] = {"wall_s": statistics.median(walls), "fold_stream_ms": statistics.median(folds),
+                 "k9_stream_ms": statistics.median(k9s), "k9_device_ms": k9_device_ms(per_name),
+                 "busy_s": busy}
+
+g = torch.Generator(device="cuda").manual_seed(31)
+big_a = torch.unique(torch.randint(0, 1 << 62, (33_000_000,), generator=g, device="cuda"))
+big_b = torch.unique(torch.cat([big_a[::16], torch.randint(0, 1 << 62, (12_000_000,), generator=g,
+                                                            device="cuda")]))
+ca, cb = torch.ones_like(big_a), torch.ones_like(big_b)
+out["k9_last_merge_ms"] = cs.median_ms(lambda: merge_tables(big_a, ca, big_b, cb))
+_, _, _, per_name = cs.device_profile(lambda: merge_tables(big_a, ca, big_b, cb), 5, warm=True)
+out["k9_last_merge_device_ms"] = k9_device_ms(per_name)
+del big_a, big_b, ca, cb
+keys = torch.randint(-(1 << 62), 1 << 62, (1 << 24,), generator=g, device="cuda")
+out["k11_2p24_ms"] = cs.median_ms(lambda: bitonic_sort(keys))
+out["torch_sort_2p24_ms"] = cs.median_ms(lambda: torch.sort(keys))
+print("AB " + json.dumps(out), flush=True)
