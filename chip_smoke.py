@@ -10,7 +10,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
 3. kernels: each kernel bit-exact against its plain torch version on the
    card at the main paths' shapes (K1 and K2 at 2^20, K3 at 2^19 and
    K = 32, 33, 47, 63, each front-end on four views; K1's hash mode on the
-   same four views at K = 1, 21, 31 and on the whole chromosome; K6 at its
+   same four views at K = 1, 21, 31 and on the whole chromosome; K1 in both
+   modes at K = 1, 2, 15, 16, 31 and K3 at K = 32, 33, 47, 62, 63 on views
+   aimed at their packed tiles (flagged bytes and N runs at the edges of
+   code words and tiles, lengths TILE - 1, TILE, TILE + 1 and 2^20 - 30,
+   offsets 1-15 and 17), with the device time per launch of K1's register
+   mode at 2^20 bytes (K = 15 and 31) and at ``bench``'s 2^26 bytes, of its
+   hash mode on the chromosome at K = 21 and of K3 at 2^19 bytes (K = 47
+   and 63), each beside its bound, and ptxas's registers and spills of
+   every kernel in phase 2; K6 at its
    five (bps, K, canonical) cases on 2^20 symbols at an odd offset and on
    the whole chromosome; K4 at K = 1, 5, 7 and K5 at K = 8, 15, 32 on four
    views with the strands clipped differently; K9 at edge cases aimed at
@@ -598,6 +606,8 @@ def phase_build():
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(flags: {' '.join(_build.NVCC_FLAGS)}; {len(_build._sources())} sources in parallel)")
+    for name, usage in _build.resource_usage().items():
+        log(f"[build] ptxas: {name}: {usage}")
 
 
 def _views(buf, size, halo):
@@ -609,6 +619,27 @@ def _views(buf, size, halo):
         ("odd offset", buf[1 : 1 + size]),
         ("offset 33", buf[33 : 33 + size - 5]),
     ]
+
+
+def _tile_edge_views(buf):
+    """Views aimed at K1's and K3's packed tiles (TILE positions a block, 32
+    bytes a code word): flagged bytes and N runs at the edges of code words
+    and tiles, lengths around a tile and a chunk, and short views at the
+    offsets 1-15 and 17; ``buf`` is a chunk of at least 2^20 bytes."""
+    import torch
+
+    from kmers_tpu_torch.ops.kernels.window_kernel import TILE
+
+    L = 3 * TILE + 5
+    edges = buf[: 2 * L].clone()
+    edges[[0, 31, 32, 63, 64, TILE - 1, TILE, 2 * TILE - 1, 2 * TILE, L - 1]] = torch.tensor(
+        list(b"NXR-nkYxmN"), dtype=torch.uint8, device=buf.device)
+    edges[L + 20 : L + 50] = ord("N")  # across a code words' boundary
+    edges[L + TILE - 10 : L + TILE + 40] = ord("n")  # across a tile's edge
+    views = [("flags at word and tile edges", edges[:L]), ("N runs across code words", edges[L:])]
+    views += [(f"length {n}", buf[:n]) for n in (TILE - 1, TILE, TILE + 1, CHUNK - 30)]
+    views += [(f"offset {o}", buf[o : o + 16 * TILE - 3]) for o in [*range(1, 16), 17]]
+    return views
 
 
 def phase_kernels(chrom: np.ndarray):
@@ -663,12 +694,43 @@ def phase_kernels(chrom: np.ndarray):
         log(f"[kernels] K1 canonical_windows K={k}: bit-equal to plain on 4 views "
             f"(n_invalid={int(got[1])}, n_ambig={int(got[2])})")
     clean = torch.from_numpy(chrom[:CHUNK].copy()).to(dev)
+    # K1 (both modes) and K3 at the edges of their packed tiles
+    edge_views = _tile_edge_views(clean)
+    hash_err = k3_err = 0.0
+    for kernel, plain, ks in [(canonical_windows, canonical_windows_plain, (1, 2, 15, 16, 31)),
+                              (canonical_hashes, canonical_hashes_plain, (1, 2, 15, 16, 31)),
+                              (canonical_words, canonical_words_plain, (32, 33, 47, 62, 63))]:
+        for k in ks:
+            for name, view in edge_views:
+                got = kernel(view, k)
+                want = plain(view, k)
+                torch.cuda.synchronize()
+                require(all(torch_equal(g, w) for g, w in zip(got, want)),
+                        f"{kernel.__name__} != plain at K={k}, {name}")
+                err = max_abs_err(got, want)
+                if kernel is canonical_words:
+                    k3_err = max(k3_err, err)
+                elif kernel is canonical_hashes:
+                    hash_err = max(hash_err, err)
+                else:
+                    k1_err = max(k1_err, err)
+        log(f"[kernels] {kernel.__name__} K={ks}: bit-equal to plain on {len(edge_views)} views at "
+            f"the packed tiles' edges")
     k1_ms = median_ms(lambda: canonical_windows(clean, K))
     k1_plain_ms = median_ms(lambda: canonical_windows_plain(clean, K))
     log(f"[kernels] K1 at 2^20 bytes, K=31: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+    # device time per launch at the main paths' shapes, each beside its bound
+    k1_us = {k: device_us(lambda: canonical_windows(clean, k), "canonical_windows_kernel") for k in (15, K)}
+    log(f"[kernels] K1 device time at 2^20 bytes: K=15 {k1_us[15]:.2f} us, K={K} {k1_us[K]:.2f} us "
+        f"(K=15 / K={K} = {k1_us[15] / k1_us[K]:.3f}), bound {1e3 * bound_ms(CHUNK * 9 + 16):.2f} us")
+    # (phase 8 holds K1 against plain at this shape)
+    big = torch.from_numpy(importlib.import_module("kmers_tpu_torch.pipelines.canonical_count").bench_input()).to(dev)
+    k1_bench_us = device_us(lambda: canonical_windows(big, K), "canonical_windows_kernel")
+    log(f"[kernels] K1 device time at bench's {big.shape[0]} bytes, K={K}: {k1_bench_us:.2f} us, "
+        f"bound {1e3 * bound_ms(big.shape[0] * 9 + 16):.2f} us")
+    del big
 
     # K1's hash mode: the same views; the byte counters equal register mode's
-    hash_err = 0.0
     for k in (1, 21, 31):
         for name, view in _views(buf, CHUNK, 30):
             got = canonical_hashes(view, k)
@@ -693,8 +755,10 @@ def phase_kernels(chrom: np.ndarray):
     del got, want
     hash_ms = median_ms(lambda: canonical_hashes(whole, K_SKETCH))
     hash_plain_ms = median_ms(lambda: canonical_hashes_plain(whole, K_SKETCH))
-    log(f"[kernels] K1 hash mode on {chrom.size} bytes, K={K_SKETCH}: kernel {hash_ms:.4f} ms, "
-        f"plain {hash_plain_ms:.4f} ms")
+    hash_us = device_us(lambda: canonical_hashes(whole, K_SKETCH), "canonical_windows_kernel")
+    log(f"[kernels] K1 hash mode on {chrom.size} bytes, K={K_SKETCH}: kernel {hash_ms:.4f} ms "
+        f"({hash_us:.2f} us of device time), plain {hash_plain_ms:.4f} ms, bound "
+        f"{bound_ms(chrom.size * 9 + 16):.4f} ms")
 
     # K6: codes below 2^bps with 0.5 % bad symbols, a view at an odd offset
     gen_err = 0.0
@@ -745,7 +809,6 @@ def phase_kernels(chrom: np.ndarray):
         f"{bound_ms(chrom.size * 11):.4f} ms")
     del whole, codes, certain
 
-    k3_err = 0.0
     for k in (32, 33, 47, 63):
         for name, view in _views(buf, CHUNK_MW, 62):
             got = canonical_words(view, k)
@@ -764,6 +827,11 @@ def phase_kernels(chrom: np.ndarray):
     k3_ms = median_ms(lambda: canonical_words(clean_mw, K_MW))
     k3_plain_ms = median_ms(lambda: canonical_words_plain(clean_mw, K_MW))
     log(f"[kernels] K3 at 2^19 bytes, K=47: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    k3_us = {k: device_us(lambda: canonical_words(clean_mw, k), "canonical_windows_mw_kernel")
+             for k in (K_MW, 63)}
+    log("[kernels] K3 device time at 2^19 bytes: " + ", ".join(
+        f"K={k} {us:.2f} us (bound {1e3 * bound_ms(CHUNK_MW * (1 + 8 * n_words(k)) + 16):.2f} us)"
+        for k, us in k3_us.items()))
 
     # K4 and K5: the strands clipped differently, as the JAX kernel's
     # callers clip them (fw [H, H + b), rv [1, b + 1))

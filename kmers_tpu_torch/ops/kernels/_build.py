@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "kernel", "check", "NVCC_FLAGS"]
+__all__ = ["library", "kernel", "check", "resource_usage", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -61,16 +61,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path, workdir: Path) -> None:
+def _compile(out: Path, workdir: Path) -> str:
     """Compile every source to an object in ``workdir``, one ``nvcc``
     process per source, all started together; then link them into the
-    shared library ``out``."""
+    shared library ``out``.  Returns what the compiles printed: ptxas's
+    registers, shared memory and spills of every kernel (``-Xptxas -v``)."""
     nvcc = _nvcc()
     sources = _sources()
     objs = [workdir / f"{src.stem}.o" for src in sources]
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(SRC_DIR), "-c", "-o", str(obj),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(sources, objs)
@@ -89,6 +91,7 @@ def _compile(out: Path, workdir: Path) -> None:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    return "".join(outputs)
 
 
 @functools.cache
@@ -102,9 +105,27 @@ def library() -> ctypes.CDLL:
         # never load a half-written library
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
             tmp = Path(work) / so.name
-            _compile(tmp, Path(work))
+            _report(so).write_text(_compile(tmp, Path(work)))
             os.replace(tmp, so)
     return ctypes.CDLL(str(so))
+
+
+def _report(so: Path) -> Path:
+    return so.with_suffix(".ptxas.txt")
+
+
+def resource_usage() -> dict[str, str]:
+    """{kernel's mangled name: ptxas's lines on it} from the report of the
+    current sources' build ("Used N registers, ..." and its stack and
+    spills); empty when no build of them has left a report."""
+    path = _report(BUILD_DIR / f"libkmers_kernels_{_digest()}.so")
+    usage, name = {}, None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "registers" in line):
+            usage[name] = f"{usage.get(name, '')}; {line.split(':')[-1].strip()}".lstrip("; ")
+    return usage
 
 
 def kernel(name: str, argtypes) -> ctypes._CFuncPtr:

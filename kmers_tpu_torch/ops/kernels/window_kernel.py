@@ -27,11 +27,17 @@ from ..windows import canonical_windows_from_codes, window_valid_mask
 from . import _build
 
 __all__ = [
+    "TILE",
     "canonical_windows",
     "canonical_windows_plain",
     "canonical_hashes",
     "canonical_hashes_plain",
 ]
+
+#: positions one block of K1 and K3 owns (``kTile`` in ``csrc/common.cuh``):
+#: the kernels pack its bytes, 32 to a code word, with a halo of one (K1) or
+#: two (K3) words; the tests aim at these edges
+TILE = 1024
 
 
 def _check_k(K: int) -> None:

@@ -105,3 +105,31 @@ def test_table_from_jax_keeps_real_rows():
     cnt = np.array([2, 0, 7, 0], np.int32)
     keys, counts = convert.table_from_jax(uh, ul, cnt)
     assert keys.tolist() == [3, 9] and counts.tolist() == [2, 7]
+
+
+def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_digest", lambda: "abc")
+    assert _build.resource_usage() == {}
+    (tmp_path / "libkmers_kernels_abc.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1kPl' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kPl\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 1456 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z1jPl' for 'sm_90a'\n"
+        "ptxas info    : Used 12 registers\n"
+    )
+    assert _build.resource_usage() == {
+        "_Z1kPl": "0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads; "
+                  "Used 40 registers, used 1 barriers, 1456 bytes smem",
+        "_Z1jPl": "Used 12 registers",
+    }
+
+
+def test_compile_asks_ptxas_for_its_report(monkeypatch, tmp_path):
+    log = _fake_nvcc(monkeypatch, tmp_path, ["a.cu"])
+    # the fake nvcc prints nothing for a good source
+    assert _build._compile(tmp_path / "lib.so", tmp_path) == ""
+    compile_ = next(c for c in log.read_text().splitlines() if " -c " in c)
+    assert "-Xptxas -v" in compile_

@@ -39,6 +39,7 @@ from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
     sixframe_words_plain,
 )
 from kmers_tpu_torch.ops.kernels.window_kernel import (
+    TILE,
     canonical_hashes,
     canonical_hashes_plain,
     canonical_windows,
@@ -223,6 +224,59 @@ def test_window_kernel_hash_mode_on_unaligned_views(cuda, offset):
     _assert_same(got, canonical_hashes_plain(view.cpu(), 21))
     # the error counters are those of the register mode on the same view
     _assert_same(got[1:], canonical_windows(view, 21)[1:])
+
+
+#: K1 (both modes) and K3 at the edges of their packed tiles: TILE positions
+#: a block, 32 bytes a code word, one (K1) or two (K3) halo words
+FRONTENDS = {
+    "K1": (canonical_windows, canonical_windows_plain, [1, 2, 15, 16, 31]),
+    "K1 hash": (canonical_hashes, canonical_hashes_plain, [1, 2, 15, 16, 31]),
+    "K3": (canonical_words, canonical_words_plain, [32, 33, 47, 62, 63]),
+}
+EDGE_LENGTHS = {"K-1": -1, "K": 0, "K+1": 1, "31": 31, "32": 32, "33": 33, "TILE-1": TILE - 1,
+                "TILE": TILE, "TILE+1": TILE + 1, "2^20-30": (1 << 20) - 30}
+EDGE_OFFSETS = [*range(1, 16), 17]
+EDGE_CASES = ["flags at word and tile edges", "N runs across code words",
+              *(f"length {name}" for name in EDGE_LENGTHS), *(f"offset {o}" for o in EDGE_OFFSETS)]
+
+
+def _edge_input(case, K, device):
+    rng = np.random.default_rng(K)
+    certain = np.frombuffer(b"ACGTacgtu", np.uint8)
+    if case.startswith("length"):
+        n = EDGE_LENGTHS[case.split()[1]]
+        b = certain[rng.integers(0, 9, n + K if n < 31 else n)]
+        if b.size > 40:
+            b[b.size // 3] = ord("N")
+        return torch.from_numpy(b).to(device)
+    if case.startswith("offset"):
+        # a view of one buffer, unaligned; several tiles and a ragged end
+        o = int(case.split()[1])
+        buf = torch.from_numpy(_bytes(5 * TILE, K, invalid=True)).to(device)
+        return buf[o : o + 4 * TILE - 5]
+    L = 3 * TILE + 5
+    b = certain[rng.integers(0, 9, L)]
+    if case.startswith("flags"):
+        edges = (0, 31, 32, 63, 64, TILE - 1, TILE, 2 * TILE - 1, 2 * TILE, L - 1)
+        b[list(edges)] = np.frombuffer(b"NXR-nkYxmN", np.uint8)
+    else:
+        b[20:50] = ord("N")  # across the first code words' boundary
+        b[96:128] = ord("n")  # exactly one code word
+        b[TILE - 10 : TILE + 40] = ord("N")  # across a tile's edge, in its halo
+        b[2 * TILE - 40 : 2 * TILE + 100] = ord("N")  # through a tile's halo words
+    return torch.from_numpy(b).to(device)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("kernel,K", [(name, K) for name, (_, _, ks) in FRONTENDS.items() for K in ks])
+def test_frontend_kernels_at_tile_edges(cuda, kernel, K, case):
+    wrapper, plain, _ = FRONTENDS[kernel]
+    b = _edge_input(case, K, cuda)
+    before = wrapper.launches
+    got = wrapper(b, K)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + (1 if b.numel() else 0)
+    _assert_same(got, plain(b.cpu(), K))
 
 
 GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False), (2, 1, True)]

@@ -9,10 +9,17 @@ measures, on ``chip_smoke.py``'s synthetic chromosome: K = 31 and six-frame
 K = 7 counting (median wall of three calls, the fold's and K9's CUDA-event
 stream time, K9's device time from ``torch.profiler``, the device's busy
 time), K9 at the K = 31 fold's last-merge shape (33 M + 14 M rows) and K11
-(``bitonic_sort``) against ``torch.sort`` at 2^24 keys.  Prints one line
-``AB {json}``.  The chromosome is cached in ``build/`` of this checkout.
+(``bitonic_sort``) against ``torch.sort`` at 2^24 keys; the front-ends'
+device time per launch (``torch.profiler``): K1's register mode at 2^20
+bytes of the chromosome (K = 15 and 31) and at ``bench``'s 2^26 bytes, its
+hash mode on the whole chromosome at K = 21, K3 at 2^19 bytes (K = 47 and
+63); ``bench``'s bases/s, and the median wall of three calls of K = 47
+counting and of ``minhash_sketch`` (K = 21, s = 1000) of the chromosome.
+Prints one line ``AB {json}``.  The chromosome is cached in ``build/`` of
+this checkout.
 """
 
+import importlib
 import json
 import statistics
 import sys
@@ -32,11 +39,14 @@ from kmers_tpu_torch import (  # noqa: E402
     CountConfig,
     SixFrameCountConfig,
     canonical_count_bytes,
+    minhash_sketch,
     sixframe_aa_count,
 )
 from kmers_tpu_torch.ops import bitonic_sort  # noqa: E402
 from kmers_tpu_torch.ops import count as count_ops  # noqa: E402
 from kmers_tpu_torch.ops.kernels.merge_kernel import merge_tables  # noqa: E402
+from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words  # noqa: E402
+from kmers_tpu_torch.ops.kernels.window_kernel import canonical_hashes, canonical_windows  # noqa: E402
 from kmers_tpu_torch.pipelines import _stream  # noqa: E402
 
 if not Path(kmers_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
@@ -96,4 +106,37 @@ del big_a, big_b, ca, cb
 keys = torch.randint(-(1 << 62), 1 << 62, (1 << 24,), generator=g, device="cuda")
 out["k11_2p24_ms"] = cs.median_ms(lambda: bitonic_sort(keys))
 out["torch_sort_2p24_ms"] = cs.median_ms(lambda: torch.sort(keys))
+del keys
+
+# the front-ends: device time per launch (K1's kernel names hold
+# "canonical_windows_kernel", K3's "canonical_windows_mw_kernel")
+chunk = torch.from_numpy(chrom[: 1 << 20].copy()).to("cuda")
+whole = torch.from_numpy(chrom).to("cuda")
+# (the package re-exports the function canonical_count over the module's name)
+cc = importlib.import_module("kmers_tpu_torch.pipelines.canonical_count")
+big = torch.from_numpy(cc.bench_input()).to("cuda")
+for name, fn, marker in [
+    ("k1_2p20_k15_us", lambda: canonical_windows(chunk, 15), "canonical_windows_kernel"),
+    ("k1_2p20_k31_us", lambda: canonical_windows(chunk, 31), "canonical_windows_kernel"),
+    ("k1_2p26_k31_us", lambda: canonical_windows(big, 31), "canonical_windows_kernel"),
+    ("k1_hash_chrom_k21_us", lambda: canonical_hashes(whole, 21), "canonical_windows_kernel"),
+    ("k3_2p19_k47_us", lambda: canonical_words(chunk[: 1 << 19], 47), "canonical_windows_mw_kernel"),
+    ("k3_2p19_k63_us", lambda: canonical_words(chunk[: 1 << 19], 63), "canonical_windows_mw_kernel"),
+]:
+    out[name] = cs.device_us(fn, marker)
+del chunk, whole, big
+out["bench_bases_per_s"] = cc.bench(device="cuda")["value"]
+for name, fn, warm in [
+    ("k47", lambda: canonical_count_bytes(chrom, CountConfig(K=47), device="cuda"),
+     lambda: canonical_count_bytes(chrom[: 3 << 20], CountConfig(K=47), device="cuda")),
+    ("sketch", lambda: minhash_sketch(chrom, K=21, s=1000, device="cuda"), None),
+]:
+    (warm or fn)()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out[f"{name}_wall_s"] = statistics.median(walls)
 print("AB " + json.dumps(out), flush=True)
