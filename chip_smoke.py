@@ -21,7 +21,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
    every kernel in phase 2; K6 at its
    five (bps, K, canonical) cases on 2^20 symbols at an odd offset and on
    the whole chromosome; K4 at K = 1, 5, 7 and K5 at K = 8, 15, 32 on four
-   views with the strands clipped differently; K9 at edge cases aimed at
+   views with the strands clipped differently, and K4 and K5 at
+   K = 1, 2, 7, 8, 10, 15, 23, 31, 32 on views aimed at their frame-major
+   tiles (flagged bytes and N runs at code-word, tile and halo edges, bounds
+   outside the input, lengths 3K - 1 to 2^20 - 30, offsets 1-15 and 17) in
+   the standard code and NCBI table 2, with their device time per launch at
+   2^20 bytes (K = 1, 7, 8, 15, 32) beside the bound; K9 at edge cases aimed at
    its tile partition (runs of equal keys across tiles, an empty table,
    disjoint key ranges, a single row, lengths off the tile, tables off a
    16-byte boundary), at a chunk-table shape and at the K = 31 fold's
@@ -120,6 +125,8 @@ S_SKETCH = 1000
 GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False)]
 K_AA = 7  # six-frame counting: K4's widest K, the JAX package's default
 K_AA_MW = 15
+#: K4's and K5's K on the views aimed at their frame-major tiles
+SIXFRAME_EDGE_KS = (1, 2, 7, 8, 10, 15, 23, 31, 32)
 READS, READ_LEN = 400_000, 150  # the streamed read set (phase 8)
 STREAM_BATCH = 1 << 24
 #: NCBI transl_table 1 (amino acids of TTT, TTC, TTA, ... in T, C, A, G
@@ -642,12 +649,45 @@ def _tile_edge_views(buf):
     return views
 
 
+def _sixframe_edge_views(buf, k):
+    """Views aimed at K4's and K5's frame-major tiles (TILE anchors a block,
+    32 bytes a code word, a halo of 3K - 1 bytes, codons in three frames),
+    each with its bounds: flagged bytes at code-word, tile and halo edges, N
+    runs across them, bounds outside the input, lengths 3K - 1 to 2^20 - 30
+    and views at the offsets 1-15 and 17; the strands clipped differently
+    where the view does not say otherwise.  ``buf`` is a chunk of at least
+    2^20 bytes."""
+    import torch
+
+    from kmers_tpu_torch.ops.kernels.window_kernel import TILE
+
+    L = 2 * TILE + 200
+    clipped = (TILE - 5, L - 40, 3, 2 * TILE + 7)
+    edges = buf[: 2 * L].clone()
+    edges[[0, 31, 32, 63, 64, 97, TILE - 1, TILE, TILE + 3 * k - 2, 2 * TILE - 1, 2 * TILE,
+           2 * TILE + 3 * k - 2, L - 1]] = torch.tensor(list(b"NR!nYx-kmN!Rn"), dtype=torch.uint8,
+                                                        device=buf.device)
+    edges[L + 20 : L + 50] = ord("N")  # across a code words' boundary
+    edges[L + 96 : L + 128] = ord("n")  # exactly one code word
+    edges[L + TILE - 10 : L + TILE + 40] = ord("N")  # across a tile's edge, in its halo
+    edges[L + 2 * TILE - 40 : L + 2 * TILE + 100] = ord("R")
+    views = [("flags at word and tile edges", edges[:L], clipped),
+             ("N runs across code words and tiles", edges[L:], clipped),
+             ("bounds outside the input", buf[:3000], (-5, 3100, -1000, 5000))]
+    views += [(f"length {n}", buf[:n], (0, n, 0, n))
+              for n in (3 * k - 1, 3 * k, TILE - 1, TILE, TILE + 1, CHUNK - 30)]
+    n = 4 * TILE - 5
+    views += [(f"offset {o}", buf[o : o + n], (3 * k, n - 7, 1, n // 2)) for o in [*range(1, 16), 17]]
+    return views
+
+
 def phase_kernels(chrom: np.ndarray):
     """Each kernel against its plain version; returns {name: entry of the
     kernels line, without launches}."""
     import torch
 
     from kmers_tpu_torch.convert import SENTINEL, n_words
+    from kmers_tpu_torch.genetic_codes import ncbi_trans_table, standard_genetic_code
     from kmers_tpu_torch.ops.encode import classify_2bit
     from kmers_tpu_torch.ops.kernels.general_kernel import (
         windows_general,
@@ -852,6 +892,21 @@ def phase_kernels(chrom: np.ndarray):
             sixframe_err[kernel.__name__] = max(sixframe_err[kernel.__name__], max_abs_err(got, want))
         log(f"[kernels] {'K4' if k <= 7 else 'K5'} {kernel.__name__} K={k}: bit-equal to plain on "
             f"4 views (n_valid={int(got[1])})")
+    # K4 and K5 at the edges of their frame-major tiles, in two genetic codes
+    for k in SIXFRAME_EDGE_KS:
+        kernel, plain = ((sixframe_windows, sixframe_windows_plain) if k <= 7
+                         else (sixframe_words, sixframe_words_plain))
+        views = _sixframe_edge_views(clean, k)
+        for name, view, bounds in views:
+            for code in (standard_genetic_code, ncbi_trans_table[2]):
+                got = kernel(view, k, bounds, code)
+                want = plain(view, k, bounds, code)
+                torch.cuda.synchronize()
+                require(all(torch_equal(g, w) for g, w in zip(got, want)),
+                        f"{kernel.__name__} != plain at K={k}, {name}, {code.name}")
+                sixframe_err[kernel.__name__] = max(sixframe_err[kernel.__name__], max_abs_err(got, want))
+        log(f"[kernels] {'K4' if k <= 7 else 'K5'} {kernel.__name__} K={k}: bit-equal to plain on "
+            f"{len(views)} views at the frame-major tiles' edges, in two genetic codes")
     every = (0, CHUNK, 0, CHUNK)
     k4_ms = median_ms(lambda: sixframe_windows(clean, K_AA, every))
     k4_plain_ms = median_ms(lambda: sixframe_windows_plain(clean, K_AA, every))
@@ -859,6 +914,15 @@ def phase_kernels(chrom: np.ndarray):
     k5_plain_ms = median_ms(lambda: sixframe_words_plain(clean, K_AA_MW, every))
     log(f"[kernels] K4 at 2^20 bytes, K={K_AA}: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms; "
         f"K5 at K={K_AA_MW}: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms")
+    # device time per launch at 2^20 bytes, each beside its bound: one byte
+    # in, 2 W 8-byte words out per anchor, the counter
+    sixframe_us = {}
+    for k in (1, K_AA, 8, K_AA_MW, 32):
+        kernel = sixframe_windows if k <= 7 else sixframe_words
+        sixframe_us[k] = device_us(lambda: kernel(clean, k, every), "sixframe_kernel")
+        bound_us = 1e3 * bound_ms(CHUNK * (1 + 16 * n_words(k, 8)) + 8)
+        log(f"[kernels] {'K4' if k <= 7 else 'K5'} device time at 2^20 bytes, K={k}: "
+            f"{sixframe_us[k]:.2f} us, bound {bound_us:.2f} us ({100 * bound_us / sixframe_us[k]:.0f} %)")
 
     # K2 inputs
     n = CHUNK

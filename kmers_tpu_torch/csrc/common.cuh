@@ -1,6 +1,6 @@
 // Shared definitions of the port's kernels (register convention of
 // kmers_tpu_torch/convert.py), the byte classification of the front-ends
-// and the packed tile of K1 and K3 (K4-K6 could build on it too).
+// and the packed tile of K1, K3, K4 and K5 (K6 could build on it too).
 #pragma once
 
 #include <cstdint>
@@ -94,12 +94,13 @@ __device__ __forceinline__ uint32_t pack_word(const uint8_t* __restrict__ bytes,
     return e;
 }
 
-// Fill `tile` for the block at `base` and add the invalid and ambiguous
-// bytes among its kTile own bytes (each byte counted once, by the block that
-// owns it, never as another block's halo) into counters[0] and counters[1],
-// one atomic pair a block.  Ends in a block-wide barrier, so the tile is
-// complete on return.  Every thread of the block must call it.
-template <int kWords>
+// Fill `tile` for the block at `base`.  With kCount, add the invalid and
+// ambiguous bytes among its kTile own bytes (each byte counted once, by the
+// block that owns it, never as another block's halo) into counters[0] and
+// counters[1], one atomic pair a block; without it (the six-frame
+// front-ends) `counters` is not read.  Ends in a block-wide barrier, so the
+// tile is complete on return.  Every thread of the block must call it.
+template <int kWords, bool kCount = true>
 __device__ __forceinline__ void pack_tile(const uint8_t* __restrict__ bytes,
                                           int64_t n, int64_t base,
                                           PackedTile<kWords>& tile,
@@ -118,6 +119,10 @@ __device__ __forceinline__ void pack_tile(const uint8_t* __restrict__ bytes,
     // the halo words; every lane of a warp takes the same branch
     for (int w = kTile / 32 + warp; w < kWords; w += kPackWarps)
         pack_word(block, lim, w, tile);
+    if constexpr (!kCount) {
+        __syncthreads();
+        return;
+    }
     // at most kTile bytes a block: each count fits its 12 bits
     sum = __reduce_add_sync(~0u, sum & ~(kAmbigOne - 1));
     if (lane == 0) tile.totals[warp] = sum;

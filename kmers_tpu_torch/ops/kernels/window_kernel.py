@@ -34,9 +34,10 @@ __all__ = [
     "canonical_hashes_plain",
 ]
 
-#: positions one block of K1 and K3 owns (``kTile`` in ``csrc/common.cuh``):
-#: the kernels pack its bytes, 32 to a code word, with a halo of one (K1) or
-#: two (K3) words; the tests aim at these edges
+#: positions one block of K1, K3, K4 and K5 owns (``kTile`` in
+#: ``csrc/common.cuh``): the kernels pack its bytes, 32 to a code word, with a
+#: halo of one (K1), two (K3) or five (K4, K5) words; the tests aim at these
+#: edges
 TILE = 1024
 
 

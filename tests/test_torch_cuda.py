@@ -368,7 +368,7 @@ def test_spaced_syncmers_and_composition_on_cuda_match_cpu(cuda):
         assert all(np.array_equal(g, w) for g, w in zip(got, want)), fn.__name__
 
 
-SIXFRAME_KS = [1, 5, 7, 8, 15, 32]
+SIXFRAME_KS = [1, 2, 5, 7, 8, 10, 15, 23, 31, 32]
 
 
 def _aa_bytes(L, seed):
@@ -412,6 +412,63 @@ def test_sixframe_kernels_on_odd_offsets(cuda, K, offset):
     torch.cuda.synchronize()
     _assert_same(got, plain(view.cpu(), K, bounds, ncbi_trans_table[2]))
     assert int(got[1]) > 0
+
+
+#: K4 and K5 at the edges of their frame-major tiles: TILE anchors a block,
+#: 32 bytes a code word, a halo of 3K - 1 bytes, codons in three frames
+SIXFRAME_EDGE_CASES = ["flags at word and tile edges", "N runs across code words and tiles",
+                       "bounds outside the input",
+                       *(f"length {n}" for n in ("3K-1", "3K", "1023", "1024", "1025", "2^20-30")),
+                       *(f"offset {o}" for o in EDGE_OFFSETS)]
+
+
+def _sixframe_edge_input(case, K, device):
+    """(bytes, bounds) of one edge case; the strands clipped differently
+    where the case does not say otherwise."""
+    rng = np.random.default_rng(K)
+    certain = np.frombuffer(b"ACGTacgtU", np.uint8)
+    if case.startswith("length"):
+        n = {"3K-1": 3 * K - 1, "3K": 3 * K, "1023": 1023, "1024": 1024, "1025": 1025,
+             "2^20-30": (1 << 20) - 30}[case.split()[1]]
+        b = certain[rng.integers(0, 9, n)]
+        if n > 100:
+            b[[n // 3, n - 3 * K - 1]] = ord("N")
+        return torch.from_numpy(b).to(device), (0, n, 0, n)
+    if case.startswith("offset"):
+        # a view of one buffer, unaligned; several tiles and a ragged end
+        o = int(case.split()[1])
+        buf = torch.from_numpy(_aa_bytes(5 * TILE, K)).to(device)
+        n = 4 * TILE - 5
+        return buf[o : o + n], (3 * K, n - 7, 1, n // 2)
+    if case.startswith("bounds"):
+        b = certain[rng.integers(0, 9, 3000)]
+        b[1500] = ord("N")
+        return torch.from_numpy(b).to(device), (-5, 3100, -1000, 5000)
+    L = 2 * TILE + 200
+    b = certain[rng.integers(0, 9, L)]
+    if case.startswith("flags"):
+        edges = (0, 31, 32, 63, 64, 97, TILE - 1, TILE, TILE + 3 * K - 2, 2 * TILE - 1, 2 * TILE,
+                 2 * TILE + 3 * K - 2, L - 1)
+        b[list(edges)] = np.frombuffer(b"NR!nYx-kmN!Rn", np.uint8)
+    else:
+        b[20:50] = ord("N")  # across the first code words' boundary
+        b[96:128] = ord("n")  # exactly one code word
+        b[TILE - 10 : TILE + 40] = ord("N")  # across a tile's edge, in its halo
+        b[2 * TILE - 40 : 2 * TILE + 100] = ord("R")
+    return torch.from_numpy(b).to(device), (TILE - 5, L - 40, 3, 2 * TILE + 7)
+
+
+@pytest.mark.parametrize("code", [1, 2])
+@pytest.mark.parametrize("case", SIXFRAME_EDGE_CASES)
+@pytest.mark.parametrize("K", SIXFRAME_KS)
+def test_sixframe_kernels_at_tile_edges(cuda, K, case, code):
+    kernel, plain = _sixframe_wrappers(K)
+    b, bounds = _sixframe_edge_input(case, K, cuda)
+    before = kernel.launches
+    got = kernel(b, K, bounds, ncbi_trans_table[code])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_same(got, plain(b.cpu(), K, bounds, ncbi_trans_table[code]))
 
 
 @pytest.mark.parametrize("K", [1, 7, 8, 15, 32])

@@ -13,10 +13,12 @@ time), K9 at the K = 31 fold's last-merge shape (33 M + 14 M rows) and K11
 device time per launch (``torch.profiler``): K1's register mode at 2^20
 bytes of the chromosome (K = 15 and 31) and at ``bench``'s 2^26 bytes, its
 hash mode on the whole chromosome at K = 21, K3 at 2^19 bytes (K = 47 and
-63); ``bench``'s bases/s, and the median wall of three calls of K = 47
-counting and of ``minhash_sketch`` (K = 21, s = 1000) of the chromosome.
-Prints one line ``AB {json}``.  The chromosome is cached in ``build/`` of
-this checkout.
+63), K4 (K = 7) and K5 (K = 15 and 32) at 2^20 bytes; ``bench``'s bases/s,
+and the median wall of three calls of K = 47 counting, of
+``minhash_sketch`` (K = 21, s = 1000) of the chromosome and of six-frame
+K = 15 counting of its first 8 Mb; and ptxas's registers, shared memory and
+spills of the front-ends' kernels.  Prints one line ``AB {json}``.  The
+chromosome is cached in ``build/`` of this checkout.
 """
 
 import importlib
@@ -44,8 +46,10 @@ from kmers_tpu_torch import (  # noqa: E402
 )
 from kmers_tpu_torch.ops import bitonic_sort  # noqa: E402
 from kmers_tpu_torch.ops import count as count_ops  # noqa: E402
+from kmers_tpu_torch.ops.kernels import _build  # noqa: E402
 from kmers_tpu_torch.ops.kernels.merge_kernel import merge_tables  # noqa: E402
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words  # noqa: E402
+from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows, sixframe_words  # noqa: E402
 from kmers_tpu_torch.ops.kernels.window_kernel import canonical_hashes, canonical_windows  # noqa: E402
 from kmers_tpu_torch.pipelines import _stream  # noqa: E402
 
@@ -109,8 +113,10 @@ out["torch_sort_2p24_ms"] = cs.median_ms(lambda: torch.sort(keys))
 del keys
 
 # the front-ends: device time per launch (K1's kernel names hold
-# "canonical_windows_kernel", K3's "canonical_windows_mw_kernel")
+# "canonical_windows_kernel", K3's "canonical_windows_mw_kernel", K4's and
+# K5's "sixframe_kernel")
 chunk = torch.from_numpy(chrom[: 1 << 20].copy()).to("cuda")
+every = (0, 1 << 20, 0, 1 << 20)
 whole = torch.from_numpy(chrom).to("cuda")
 # (the package re-exports the function canonical_count over the module's name)
 cc = importlib.import_module("kmers_tpu_torch.pipelines.canonical_count")
@@ -122,14 +128,21 @@ for name, fn, marker in [
     ("k1_hash_chrom_k21_us", lambda: canonical_hashes(whole, 21), "canonical_windows_kernel"),
     ("k3_2p19_k47_us", lambda: canonical_words(chunk[: 1 << 19], 47), "canonical_windows_mw_kernel"),
     ("k3_2p19_k63_us", lambda: canonical_words(chunk[: 1 << 19], 63), "canonical_windows_mw_kernel"),
+    ("k4_2p20_k7_us", lambda: sixframe_windows(chunk, 7, every), "sixframe_kernel"),
+    ("k5_2p20_k15_us", lambda: sixframe_words(chunk, 15, every), "sixframe_kernel"),
+    ("k5_2p20_k32_us", lambda: sixframe_words(chunk, 32, every), "sixframe_kernel"),
 ]:
     out[name] = cs.device_us(fn, marker)
+out["ptxas"] = {name: usage for name, usage in _build.resource_usage().items()
+                if any(m in name for m in ("canonical_windows", "sixframe_kernel"))}
 del chunk, whole, big
 out["bench_bases_per_s"] = cc.bench(device="cuda")["value"]
 for name, fn, warm in [
     ("k47", lambda: canonical_count_bytes(chrom, CountConfig(K=47), device="cuda"),
      lambda: canonical_count_bytes(chrom[: 3 << 20], CountConfig(K=47), device="cuda")),
     ("sketch", lambda: minhash_sketch(chrom, K=21, s=1000, device="cuda"), None),
+    ("aa15_8mb", lambda: sixframe_aa_count(chrom[: 8 << 20], SixFrameCountConfig(K=15), device="cuda"),
+     lambda: sixframe_aa_count(chrom[: 3 << 20], SixFrameCountConfig(K=15), device="cuda")),
 ]:
     (warm or fn)()
     walls = []
