@@ -122,7 +122,8 @@ CHUNK_MW = 1 << 19
 K_SKETCH = 21  # Mash's default k and s
 S_SKETCH = 1000
 #: K6's cases: (bps, K, canonical)
-GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (8, 7, False)]
+GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (4, 8, False),
+                 (8, 7, False), (8, 1, False)]
 K_AA = 7  # six-frame counting: K4's widest K, the JAX package's default
 K_AA_MW = 15
 #: K4's and K5's K on the views aimed at their frame-major tiles
@@ -681,6 +682,36 @@ def _sixframe_edge_views(buf, k):
     return views
 
 
+def _general_edge_views(codes, good, bps, k):
+    """Views aimed at K6's and K8b's packed code tiles (TILE positions a
+    block, 32 symbols a group, one 32-symbol halo group), as (name, codes,
+    good): bad symbols at group, tile and halo edges, bad runs across them,
+    codes at the top of their range, lengths around a group, a tile and a
+    chunk, and views at the offsets 1-15, 17 and 33.  ``codes`` and ``good``
+    hold at least 2^20 + 64 symbols."""
+    import torch
+
+    from kmers_tpu_torch.ops.kernels.window_kernel import TILE
+
+    L = 3 * TILE + 5
+    g = good[: 2 * L].clone()
+    # the last symbol a tile's last window reads and the halo group's last
+    g[[0, 31, 32, 63, 64, TILE - 1, TILE, TILE + 1, TILE + k - 2, TILE + 31, 2 * TILE - 1, 2 * TILE,
+       L - 1]] = False
+    g[L + 20 : L + 50] = False  # across a groups' boundary
+    g[L + TILE - 10 : L + TILE + 40] = False  # across a tile's edge, in its halo
+    g[L + 2 * TILE - 40 : L + 2 * TILE + 100] = False
+    top = torch.full((2 * TILE + 77,), (1 << bps) - 1, dtype=torch.uint8, device=codes.device)
+    views = [("bad at group, tile and halo edges", codes[:L], g[:L]),
+             ("bad runs across groups and tiles", codes[L : 2 * L], g[L:]),
+             ("codes at the top of their range", top, good[: top.numel()])]
+    views += [(f"length {n}", codes[:n], good[:n])
+              for n in (k - 1, k, k + 1, 31, 32, 33, TILE - 1, TILE, TILE + 1, 1056, CHUNK - 1, CHUNK + 1)]
+    n = 4 * TILE - 5
+    views += [(f"offset {o}", codes[o : o + n], good[o : o + n]) for o in [*range(1, 16), 17, 33]]
+    return views
+
+
 def phase_kernels(chrom: np.ndarray):
     """Each kernel against its plain version; returns {name: entry of the
     kernels line, without launches}."""
@@ -800,7 +831,9 @@ def phase_kernels(chrom: np.ndarray):
         f"({hash_us:.2f} us of device time), plain {hash_plain_ms:.4f} ms, bound "
         f"{bound_ms(chrom.size * 9 + 16):.4f} ms")
 
-    # K6: codes below 2^bps with 0.5 % bad symbols, a view at an odd offset
+    # K6: codes below 2^bps with 0.5 % bad symbols, a view at an odd offset,
+    # and views aimed at its packed code tiles; device time per launch at
+    # 2^20 beside the bound (a code and a flag byte in, 8 bytes out)
     gen_err = 0.0
     flags = torch.from_numpy(rng.random(CHUNK + 64) > 0.005).to(dev)
     for bps, k, canonical in GENERAL_CASES:
@@ -813,8 +846,20 @@ def phase_kernels(chrom: np.ndarray):
         n_valid = int((got != SENTINEL).sum())
         require(CHUNK // 2 < n_valid < CHUNK - k, f"K6 valid windows at bps={bps}, K={k}")
         gen_err = max(gen_err, max_abs_err([got], [want]))
+        views = _general_edge_views(codes, flags, bps, k)
+        for name, vc, vg in views:
+            got = windows_general(vc, vg, k, bps, canonical)
+            want = windows_general_plain(vc, vg, k, bps, canonical)
+            torch.cuda.synchronize()
+            require(torch_equal(got, want), f"K6 != plain at bps={bps}, K={k}, canonical={canonical}, {name}")
+            gen_err = max(gen_err, max_abs_err([got], [want]))
+        us = device_us(
+            lambda: windows_general(c, g, k, bps, canonical), "general_windows_kernel")
+        bound_us = 1e3 * bound_ms(CHUNK * 10)
         log(f"[kernels] K6 windows_general bps={bps} K={k} canonical={canonical}: bit-equal to "
-            f"plain on 2^20 symbols at offset 33 ({n_valid} valid windows)")
+            f"plain on 2^20 symbols at offset 33 ({n_valid} valid windows) and on {len(views)} views at "
+            f"the packed code tiles' edges; {us:.2f} us a launch at 2^20, bound {bound_us:.2f} us "
+            f"({100 * bound_us / us:.0f} %)")
     # the main path's shape: extract_kmers' codes of the whole chromosome, K = 31
     codes, certain, _ = classify_2bit(whole)
     codes = codes.to(torch.uint8)
@@ -822,14 +867,36 @@ def phase_kernels(chrom: np.ndarray):
     want = windows_general_plain(codes, certain, K, 2, False)
     require(torch_equal(got, want), "K6 != plain on the chromosome")
     gen_err = max(gen_err, max_abs_err([got], [want]))
+    # and minimizer_select's, K = 15 canonical
+    got = windows_general(codes, certain, 15, 2, True)
+    want = windows_general_plain(codes, certain, 15, 2, True)
+    require(torch_equal(got, want), "K6 != plain on the chromosome at K = 15, canonical")
+    gen_err = max(gen_err, max_abs_err([got], [want]))
     del got, want
     gen_ms = median_ms(lambda: windows_general(codes, certain, K, 2, False))
     gen_plain_ms = median_ms(lambda: windows_general_plain(codes, certain, K, 2, False))
-    log(f"[kernels] K6 on {chrom.size} symbols, bps=2, K={K}: kernel {gen_ms:.4f} ms, "
-        f"plain {gen_plain_ms:.4f} ms")
+    gen_us = device_us(lambda: windows_general(codes, certain, K, 2, False), "general_windows_kernel")
+    gen15_us = device_us(lambda: windows_general(codes, certain, 15, 2, True), "general_windows_kernel")
+    gen_bound_ms = bound_ms(chrom.size * (1 + 1 + 8))
+    log(f"[kernels] K6 on {chrom.size} symbols, bps=2, K={K}: kernel {gen_ms:.4f} ms ({gen_us:.1f} us "
+        f"of device time; K=15 canonical {gen15_us:.1f} us, K=15 / K={K} = {gen15_us / gen_us:.3f}), "
+        f"plain {gen_plain_ms:.4f} ms, bound {gen_bound_ms:.4f} ms "
+        f"({100 * gen_bound_ms / (gen_us / 1e3):.0f} %)")
 
-    # K8b at K = 32: the same codes, forward and canonical, both planes
+    # K8b at K = 32: the same codes, forward and canonical, both planes; and
+    # views aimed at its packed code tiles
     k32_err = 0.0
+    views = _general_edge_views(codes[: CHUNK + 64], certain[: CHUNK + 64] & flags, 2, 32)
+    for canonical in (False, True):
+        for name, vc, vg in views:
+            got = windows_k32(vc, vg, canonical)
+            want = windows_k32_plain(vc, vg, canonical)
+            torch.cuda.synchronize()
+            require(all(torch_equal(g, w) for g, w in zip(got, want)),
+                    f"K8b (K = 32) != plain, canonical={canonical}, {name}")
+            k32_err = max(k32_err, max_abs_err(got, want))
+    log(f"[kernels] K8b windows_k32: both planes bit-equal to plain on {len(views)} views at the packed "
+        f"code tiles' edges, forward and canonical")
     for canonical in (False, True):
         got = windows_k32(codes, certain, canonical)
         want = windows_k32_plain(codes, certain, canonical)
@@ -846,7 +913,7 @@ def phase_kernels(chrom: np.ndarray):
     k32_us = device_us(lambda: windows_k32(codes, certain, True), "windows_k32_kernel")
     log(f"[kernels] K8b on {chrom.size} symbols, K=32 canonical: kernel {k32_ms:.4f} ms "
         f"({k32_us:.1f} us of device time), plain {k32_plain_ms:.4f} ms, bound "
-        f"{bound_ms(chrom.size * 11):.4f} ms")
+        f"{bound_ms(chrom.size * 11):.4f} ms ({100 * bound_ms(chrom.size * 11) / (k32_us / 1e3):.0f} %)")
     del whole, codes, certain
 
     for k in (32, 33, 47, 63):
@@ -1006,7 +1073,8 @@ def phase_kernels(chrom: np.ndarray):
             replaces="kmers_tpu/ops/pallas/general_kernel.py:80",
             max_abs_err=gen_err, ms=gen_ms, plain_ms=gen_plain_ms,
             # a uint8 code and a bool flag in, one 8-byte register out per position
-            bound_ms=bound_ms(chrom.size * (1 + 1 + 8)), bound_by="bytes", library_ms=None,
+            bound_ms=gen_bound_ms, bound_by="bytes", library_ms=None,
+            device_us=gen_us,
         ),
         "sixframe_windows": dict(
             route="cuda", source="kmers_tpu_torch/csrc/sixframe_kernel.cu",
@@ -1025,13 +1093,24 @@ def phase_kernels(chrom: np.ndarray):
     }
 
 
-def device_us(fn, marker: str, reps: int = 5) -> float:
+def device_us(fn, marker: str, reps: int = 5, tries: int = 3) -> float:
     """Device time of one launch of each kernel whose name holds
     ``marker``, summed over those kernels (``torch.profiler``), in
     microseconds; per launch seen, so a launch the trace drops does not
-    lower it."""
-    _, _, _, per_name = device_profile(fn, reps, warm=True)
-    return 1e6 * sum(secs / calls for name, (calls, secs) in per_name.items() if marker in name and calls)
+    lower it.  A trace that shows no such launch at all is taken again, at
+    most ``tries`` times in all (a trace can come back with no device
+    events); after that the time is the median of ``reps`` CUDA-event
+    timings of one call of ``fn``, its stream time, logged as such."""
+    for _ in range(tries):
+        _, _, _, per_name = device_profile(fn, reps, warm=True)
+        seen = [(calls, secs) for name, (calls, secs) in per_name.items() if marker in name and calls]
+        if seen:
+            return 1e6 * sum(secs / calls for calls, secs in seen)
+        log(f"[profile] no launch of {marker} in the trace ({len(per_name)} device events: "
+            f"{sorted(per_name)[:6]})")
+    us = 1e3 * median_ms(fn, reps)
+    log(f"[profile] {marker}: {us:.2f} us of stream time a call from CUDA events, not from the profiler")
+    return us
 
 
 def kernels_fold(clean):
@@ -1566,7 +1645,7 @@ def phase_sketch_extract(chrom: np.ndarray, smi: str):
     launches["windows_general"] += windows_general.launches
     log(f"[extract] extract_kmers K={K} on {L} bases: {wall:.4f} s wall, {L / wall:.0f} bases/s, "
         f"{vals.size} k-mers, windows_general launches {windows_general.launches} ({smi})")
-    require(windows_general.launches >= 1, "extract_kmers did not launch K6")
+    require(windows_general.launches == 1, "extract_kmers did not launch K6 once")
     _log_profile("extract", lambda: extract_kmers(chrom, K=K, canonical=False, device="cuda"), smi)
     fw, can, valid = numpy_windows(chrom, K)
     require(vals.dtype == np.uint64 and np.array_equal(vals, fw[valid]), "extracted values differ from numpy")
@@ -1604,7 +1683,7 @@ def phase_sketch_extract(chrom: np.ndarray, smi: str):
     log(f"[minimizers] minimizer_select K=15 W=10 on {L} bases: {wall:.4f} s wall, "
         f"{L / wall:.0f} bases/s, {mvals.size} minimizers, windows_general launches "
         f"{windows_general.launches} ({smi})")
-    require(windows_general.launches >= 1, "minimizer_select did not launch K6")
+    require(windows_general.launches == 1, "minimizer_select did not launch K6 once")
     _log_profile("minimizers", lambda: minimizer_select(
         chrom, K=15, W=10, canonical=True, skip_ambiguous=True, device="cuda"), smi)
     t0 = time.perf_counter()

@@ -1,6 +1,7 @@
 // Shared definitions of the port's kernels (register convention of
-// kmers_tpu_torch/convert.py), the byte classification of the front-ends
-// and the packed tile of K1, K3, K4 and K5 (K6 could build on it too).
+// kmers_tpu_torch/convert.py), the byte classification of the front-ends,
+// the packed byte tile of K1, K3, K4 and K5 and the packed code tile of K6
+// and K8b.
 #pragma once
 
 #include <cstdint>
@@ -11,7 +12,6 @@
 
 namespace kmers {
 
-constexpr int kBlock = 256;       // threads per block of K4-K6
 constexpr uint8_t kFlag = 4;      // packed byte: not a certain base
 
 // bit i set: letter 'A' + i belongs to the class
@@ -153,6 +153,89 @@ __device__ __forceinline__ void code_slice128(const uint32_t* code, int w, int s
     const uint32_t a = c[0], b = c[1], d = c[2], e = c[3], f = c[4];
     lo = (static_cast<uint64_t>(__funnelshift_r(b, d, r)) << 32) | __funnelshift_r(a, b, r);
     hi = (static_cast<uint64_t>(__funnelshift_r(e, f, r)) << 32) | __funnelshift_r(d, e, r);
+}
+
+// The packed tile of a code stream (K6, K8b): the codes (each below 2^kBps)
+// and good flags of the kCodeGroups * 32 symbols from `base`, kBps bits a
+// symbol, the first in the low bits:
+// - code holds symbol j at bits kBps * j .. kBps * j + kBps - 1 of the
+//   little-endian bit stream of its words (kBps words a group of 32);
+// - flag[g] has bit l set where symbol 32g + l is not good or lies at or
+//   past the stream's end (whose code is then 0).
+// A bad symbol keeps its code: K8b writes the registers of invalid windows.
+// kTile owned symbols and one halo group cover K - 1 <= 31.
+constexpr int kCodeGroups = kTile / 32 + 1;
+
+template <int kBps>
+struct alignas(16) CodeTile {
+    static_assert(kBps == 2 || kBps == 4 || kBps == 8, "2, 4 or 8 bits a symbol");
+    uint32_t code[kBps * kCodeGroups];
+    uint32_t flag[kCodeGroups];
+};
+
+// Fill `tile` for the block at `base`: warp w packs the groups w, w + 8, ...
+// Lane l reads code and good byte 32g + l (one byte a lane, coalesced: a
+// view may start anywhere), ORs its code into word kBps * l / 32 of the
+// group with __reduce_or_sync (at 8 bits the code byte is stored as it is,
+// the same layout) and ballots its flag.  Ends in a block-wide barrier.
+// Every thread of the block must call it.
+template <int kBps>
+__device__ __forceinline__ void pack_codes(const uint8_t* __restrict__ codes,
+                                           const uint8_t* __restrict__ good,
+                                           int64_t n, int64_t base,
+                                           CodeTile<kBps>& tile) {
+    constexpr int kOwned = kTile / 32 / kPackWarps;   // groups a warp owns
+    constexpr int kPerWord = 32 / kBps;               // symbols a code word
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int lim = static_cast<int>(n - base < 32 * kCodeGroups ? n - base : 32 * kCodeGroups);
+    const uint8_t* __restrict__ c = codes + base;
+    const uint8_t* __restrict__ q = good + base;
+    // every load of the thread first, then the packing
+    uint32_t code[kOwned + 1];
+    bool bad[kOwned + 1];
+#pragma unroll
+    for (int k = 0; k <= kOwned; ++k) {
+        const int g = k * kPackWarps + warp;
+        const int j = 32 * g + lane;
+        const bool in = g < kCodeGroups && j < lim;
+        code[k] = in ? c[j] : 0u;
+        bad[k] = !in || !q[j];
+    }
+#pragma unroll
+    for (int k = 0; k <= kOwned; ++k) {
+        const int g = k * kPackWarps + warp;
+        // the halo group: one warp; every lane of a warp takes the same branch
+        if (k == kOwned && g >= kCodeGroups) break;
+        const uint32_t f = __ballot_sync(~0u, bad[k]);
+        if constexpr (kBps == 8) {
+            reinterpret_cast<uint8_t*>(tile.code)[32 * g + lane] = static_cast<uint8_t>(code[k]);
+        } else {
+            const uint32_t v = code[k] << (kBps * (lane % kPerWord));
+            uint32_t w[kBps];
+#pragma unroll
+            for (int i = 0; i < kBps; ++i)
+                w[i] = __reduce_or_sync(~0u, lane / kPerWord == i ? v : 0u);
+            if (lane == 0) {
+                if constexpr (kBps == 2)
+                    reinterpret_cast<uint2*>(tile.code)[g] = make_uint2(w[0], w[1]);
+                else
+                    reinterpret_cast<uint4*>(tile.code)[g] = make_uint4(w[0], w[1], w[2], w[3]);
+            }
+        }
+        if (lane == 0) tile.flag[g] = f;
+    }
+    __syncthreads();
+}
+
+// Bits kBps * p .. kBps * p + 63 of a CodeTile's code words: the codes of
+// the 64 / kBps symbols from p, the first in the low bits.
+template <int kBps>
+__device__ __forceinline__ uint64_t code_slice64_at(const uint32_t* code, int p) {
+    const int bit = kBps * p;
+    const uint32_t* c = code + (bit >> 5);
+    const int r = bit & 31;
+    const uint32_t a = c[0], b = c[1], d = c[2];
+    return (static_cast<uint64_t>(__funnelshift_r(b, d, r)) << 32) | __funnelshift_r(a, b, r);
 }
 
 // The flags of the 32 (flag_slice32) or 64 (flag_slice64) bytes from

@@ -4,6 +4,7 @@ device; run them on a GPU host with ``python -m pytest tests/test_torch_cuda.py 
 
 import collections
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -308,6 +309,81 @@ def test_general_kernel_on_odd_offsets(cuda, bps, K, canonical, offset):
     got = windows_general(c, g, K, bps, canonical)
     torch.cuda.synchronize()
     _assert_same([got], [windows_general_plain(c.cpu(), g.cpu(), K, bps, canonical)])
+
+
+#: K6 and K8b at the edges of their packed code tiles (TILE positions a
+#: block, 32 symbols a group, one halo group): the inputs of
+#: tests/test_torch_general_edges.py, each case alone, and views of one
+#: buffer at odd offsets; (bps, K, canonical), K = 32 is K8b
+GENERAL_EDGE_CONFIGS = [(2, 1, True), (2, 16, False), (2, 31, True), (2, 31, False), (4, 1, True),
+                        (4, 8, False), (4, 15, True), (8, 1, False), (8, 4, False), (8, 7, False),
+                        (2, 32, False), (2, 32, True)]
+GENERAL_EDGE_LENGTHS = {"K-1": -1, "K": 0, "K+1": 1, "31": 31, "32": 32, "33": 33, "1023": 1023,
+                        "1024": 1024, "1025": 1025, "1056": 1056, "2^20-1": (1 << 20) - 1,
+                        "2^20+1": (1 << 20) + 1}
+GENERAL_EDGE_CASES = ["bad at group, tile and halo edges", "bad runs across groups and tiles",
+                      "codes at the top of their range",
+                      *(f"length {n}" for n in GENERAL_EDGE_LENGTHS),
+                      *(f"offset {o}" for o in [*EDGE_OFFSETS, 33])]
+
+
+@functools.cache
+def _general_edge_cases(bps, K):
+    """{case: (codes, good)} as numpy, the same as the CPU tests'."""
+    rng = np.random.default_rng(100 * bps + K)
+    top = (1 << bps) - 1
+
+    def stream(L):
+        return rng.integers(0, top + 1, L).astype(np.uint8), rng.random(L) > 0.002
+
+    L = 3 * TILE + 5
+    codes, good = stream(L)
+    good[[0, 31, 32, 63, 64, TILE - 1, TILE, TILE + 1, TILE + K - 2, TILE + 31, 2 * TILE - 1,
+          2 * TILE, 2 * TILE + K - 2, L - 1]] = False
+    cases = {GENERAL_EDGE_CASES[0]: (codes, good)}
+    codes, good = stream(L)
+    good[20:50] = False  # across the first groups' boundary
+    good[96:128] = False  # exactly one group
+    good[TILE - 10 : TILE + 40] = False  # across a tile's edge, in its halo
+    good[2 * TILE - 40 : 2 * TILE + 100] = False
+    cases[GENERAL_EDGE_CASES[1]] = (codes, good)
+    codes = np.full(2 * TILE + 77, top, np.uint8)
+    good = np.ones(codes.size, bool)
+    good[[TILE // 2, TILE + 3]] = False
+    cases[GENERAL_EDGE_CASES[2]] = (codes, good)
+    for name, n in GENERAL_EDGE_LENGTHS.items():
+        codes, good = stream(K + n if n < 31 else n)
+        if codes.size > 40:
+            good[codes.size // 3] = False
+        cases[f"length {name}"] = (codes, good)
+    return cases
+
+
+def _general_edge_input(case, bps, K, device):
+    if case.startswith("offset"):
+        # a view of one buffer, unaligned; several tiles and a ragged end
+        o = int(case.split()[1])
+        codes, good = _general_input(5 * TILE, bps, 1000 * bps + K)
+        return codes.to(device)[o : o + 4 * TILE - 5], good.to(device)[o : o + 4 * TILE - 5]
+    codes, good = _general_edge_cases(bps, K)[case]
+    return torch.from_numpy(codes).to(device), torch.from_numpy(good).to(device)
+
+
+@pytest.mark.parametrize("case", GENERAL_EDGE_CASES)
+@pytest.mark.parametrize("bps,K,canonical", GENERAL_EDGE_CONFIGS)
+def test_general_kernels_at_tile_edges(cuda, bps, K, canonical, case):
+    codes, good = _general_edge_input(case, bps, K, cuda)
+    wrapper = windows_k32 if K == 32 else windows_general
+    before = wrapper.launches
+    if K == 32:
+        got = windows_k32(codes, good, canonical)
+        want = windows_k32_plain(codes.cpu(), good.cpu(), canonical)
+    else:
+        got = [windows_general(codes, good, K, bps, canonical)]
+        want = [windows_general_plain(codes.cpu(), good.cpu(), K, bps, canonical)]
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + (1 if codes.numel() else 0)
+    _assert_same(got, want)
 
 
 @pytest.mark.parametrize("K,s", [(21, 1000), (31, 50), (32, 200), (11, 2000)])

@@ -13,12 +13,16 @@ time), K9 at the K = 31 fold's last-merge shape (33 M + 14 M rows) and K11
 device time per launch (``torch.profiler``): K1's register mode at 2^20
 bytes of the chromosome (K = 15 and 31) and at ``bench``'s 2^26 bytes, its
 hash mode on the whole chromosome at K = 21, K3 at 2^19 bytes (K = 47 and
-63), K4 (K = 7) and K5 (K = 15 and 32) at 2^20 bytes; ``bench``'s bases/s,
-and the median wall of three calls of K = 47 counting, of
-``minhash_sketch`` (K = 21, s = 1000) of the chromosome and of six-frame
-K = 15 counting of its first 8 Mb; and ptxas's registers, shared memory and
-spills of the front-ends' kernels.  Prints one line ``AB {json}``.  The
-chromosome is cached in ``build/`` of this checkout.
+63), K4 (K = 7) and K5 (K = 15 and 32) at 2^20 bytes, K6 on the
+chromosome's 2-bit codes (K = 31 forward, K = 15 canonical) and at 2^20
+random codes in each of ``GENERAL_CASES``, K8b on the chromosome (K = 32
+canonical); ``bench``'s bases/s, and the median wall of three calls of
+K = 47 counting, of ``minhash_sketch`` (K = 21, s = 1000) of the
+chromosome, of ``extract_kmers`` (K = 31) and ``minimizer_select`` (K = 15,
+W = 10) of it and of six-frame K = 15 counting of its first 8 Mb; and
+ptxas's registers, shared memory and spills of the front-ends' kernels.
+Prints one line ``AB {json}``.  The chromosome is cached in ``build/`` of
+this checkout.
 """
 
 import importlib
@@ -41,12 +45,16 @@ from kmers_tpu_torch import (  # noqa: E402
     CountConfig,
     SixFrameCountConfig,
     canonical_count_bytes,
+    extract_kmers,
     minhash_sketch,
+    minimizer_select,
     sixframe_aa_count,
 )
 from kmers_tpu_torch.ops import bitonic_sort  # noqa: E402
 from kmers_tpu_torch.ops import count as count_ops  # noqa: E402
+from kmers_tpu_torch.ops.encode import classify_2bit  # noqa: E402
 from kmers_tpu_torch.ops.kernels import _build  # noqa: E402
+from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_k32  # noqa: E402
 from kmers_tpu_torch.ops.kernels.merge_kernel import merge_tables  # noqa: E402
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words  # noqa: E402
 from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows, sixframe_words  # noqa: E402
@@ -65,6 +73,9 @@ else:
     chrom = cs.synth_chromosome(cs.CHR21_BASES, seed=21)
     cache.parent.mkdir(exist_ok=True)
     np.save(cache, chrom)
+#: K6's (bps, K, canonical) at 2^20 random codes (here, not ROOT's chip_smoke: both sides take the same)
+GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (4, 8, False),
+                 (8, 7, False), (8, 1, False)]
 #: K9's kernel names before and since its redesign
 K9_NAMES = ("merge_tables_kernel", "k9_")
 out = {"tag": tag, "root": root, "device": torch.cuda.get_device_name(0)}
@@ -133,14 +144,33 @@ for name, fn, marker in [
     ("k5_2p20_k32_us", lambda: sixframe_words(chunk, 32, every), "sixframe_kernel"),
 ]:
     out[name] = cs.device_us(fn, marker)
+# K6 and K8b (kernel names "general_windows_kernel", "windows_k32_kernel")
+codes, certain, _ = classify_2bit(whole)
+codes = codes.to(torch.uint8)
+for name, fn, marker in [
+    ("k6_chrom_k31_us", lambda: windows_general(codes, certain, 31, 2, False), "general_windows_kernel"),
+    ("k6_chrom_k15_can_us", lambda: windows_general(codes, certain, 15, 2, True), "general_windows_kernel"),
+    ("k8b_chrom_can_us", lambda: windows_k32(codes, certain, True), "windows_k32_kernel"),
+]:
+    out[name] = cs.device_us(fn, marker)
+rng = np.random.default_rng(6)
+good = torch.from_numpy(rng.random(1 << 20) > 0.005).to("cuda")
+for bps, k, canonical in GENERAL_CASES:
+    c = torch.from_numpy(rng.integers(0, 1 << bps, 1 << 20).astype(np.uint8)).to("cuda")
+    out[f"k6_2p20_bps{bps}_k{k}_{'can' if canonical else 'fw'}_us"] = cs.device_us(
+        lambda: windows_general(c, good, k, bps, canonical), "general_windows_kernel")
 out["ptxas"] = {name: usage for name, usage in _build.resource_usage().items()
-                if any(m in name for m in ("canonical_windows", "sixframe_kernel"))}
-del chunk, whole, big
+                if any(m in name for m in ("canonical_windows", "sixframe_kernel", "general_windows",
+                                           "windows_k32"))}
+del chunk, whole, big, codes, certain, c, good
 out["bench_bases_per_s"] = cc.bench(device="cuda")["value"]
 for name, fn, warm in [
     ("k47", lambda: canonical_count_bytes(chrom, CountConfig(K=47), device="cuda"),
      lambda: canonical_count_bytes(chrom[: 3 << 20], CountConfig(K=47), device="cuda")),
     ("sketch", lambda: minhash_sketch(chrom, K=21, s=1000, device="cuda"), None),
+    ("extract", lambda: extract_kmers(chrom, K=31, device="cuda"), None),
+    ("minimizers", lambda: minimizer_select(chrom, K=15, W=10, canonical=True, skip_ambiguous=True,
+                                            device="cuda"), None),
     ("aa15_8mb", lambda: sixframe_aa_count(chrom[: 8 << 20], SixFrameCountConfig(K=15), device="cuda"),
      lambda: sixframe_aa_count(chrom[: 3 << 20], SixFrameCountConfig(K=15), device="cuda")),
 ]:
