@@ -40,6 +40,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
    kernels' launch counts from the counting run (K9 once a merge, K10
    once a chunk and once a merge), the fold's stream time with K9's share
    and a ``torch.profiler`` breakdown;
+   then the parallel plane (``phase_parallel``): ``sharded_canonical_count``
+   at K = 31 over ``data_mesh(1)``, over 4 ranks on ``cuda:0`` (the
+   streamed route, 12 slab chunks a rank) and over an NCCL process group of
+   one rank built in the process and torn down after, each equal to the
+   single-device table (so to the numpy reference), each rank's k-mers
+   routed to it, and the launches of K1, K2, K9 and K10 equal to the slab
+   and chunk geometry, with the walls, the ranks, ``cap``, the overflow and
+   the exchange's device time; K1 and K2 against plain on a rank's first
+   slab chunk cut to an odd length; ``sharded_canonical_count_mw`` at
+   K = 47 on 4 Mb over 4 ranks and over NCCL (one K3 launch a rank) and
+   ``sharded_minimizer_select`` at K = 15, W = 10 over 4 ranks (one K6
+   launch a rank), each equal to the single-device result;
 5. slice K = 47 (multi-word registers, K3): the same chromosome, checks and
    launch counts (K10 only: word tables merge by sorting), a stage
    breakdown with synchronising timers; then a few hundred kb at K = 63 (K3,
@@ -1410,7 +1422,8 @@ def require_fold_launches(launches: dict, n_chunks: int, merges: bool) -> None:
 
 
 def phase_slice(chrom: np.ndarray, smi: str):
-    """The K = 31 path; returns its launch counts."""
+    """The K = 31 path; returns its launch counts and its table, which is
+    checked equal to the numpy reference."""
     import torch
 
     from kmers_tpu_torch import CountConfig, canonical_count_bytes
@@ -1460,7 +1473,7 @@ def phase_slice(chrom: np.ndarray, smi: str):
             "first 100 kb differ from the string Counter")
     log(f"[slice K={K}] first 100 kb equal to the string-level Counter ({len(want)} distinct)")
     _check_cli(chrom, K)
-    return launches
+    return launches, (kmers, counts)
 
 
 def phase_slice_mw(chrom: np.ndarray, smi: str):
@@ -2214,6 +2227,199 @@ def phase_checkpoint(chrom: np.ndarray, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- parallel
+
+
+PARALLEL_RANKS = 4
+MW_SLICE = 4_000_000
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def capture_exchanges(module, name: str):
+    """Record each call of ``module.<name>`` (an exchange: ``(tables, mesh,
+    cap, ...)`` -> ``(merged, overflow)``) as a dict of its inputs and
+    outputs; restores the function on exit."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(tables, mesh, cap, *args):
+        merged, overflow = real(tables, mesh, cap, *args)
+        calls.append({"tables": tables, "mesh": mesh, "cap": cap, "args": args,
+                      "merged": merged, "overflow": overflow})
+        return merged, overflow
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _fold_geometry(n_ranks: int, L: int, k: int, chunk: int) -> dict:
+    """K1, K2, K9 and K10 launches of a sharded K <= 31 count: per rank one
+    K1 and one K2 a slab chunk; on the streamed route one K10 a chunk and,
+    for each of the chunks - 1 merges of the level stack, one K9 and one
+    K10.  A slab of one chunk is counted in one dispatch and not folded."""
+    shard = -(-L // n_ranks)
+    steps = len(range(0, shard, chunk - (k - 1))) if -(-shard // chunk) > 1 else 1
+    return {"canonical_windows": n_ranks * steps, "rle_unit": n_ranks * steps,
+            "merge_tables": n_ranks * (steps - 1),
+            "compact_table": n_ranks * (2 * steps - 1) if steps > 1 else 0}
+
+
+def phase_parallel(chrom: np.ndarray, smi: str, table_31) -> collections.Counter:
+    """The parallel plane: ``sharded_canonical_count`` at K = 31 on the
+    whole chromosome over ``data_mesh(1)``, over 4 ranks on ``cuda:0`` and
+    over an NCCL process group of one rank, each equal to the single-device
+    table of phase 4 (itself equal to the numpy reference), with each
+    rank's k-mers routed to it and the launches of K1, K2, K9 and K10 equal
+    to the slab and chunk geometry; ``sharded_canonical_count_mw`` at
+    K = 47 on 4 Mb over 4 ranks and over NCCL (K3 once a rank), and
+    ``sharded_minimizer_select`` at K = 15, W = 10 over 4 ranks (K6 once a
+    rank), each equal to the single-device result.  K1 and K2 are held
+    against their plain versions on a rank's first slab chunk first.
+    Returns the launches of the driven runs."""
+    import torch
+    import torch.distributed as dist
+
+    from kmers_tpu_torch import CountConfig, canonical_count_bytes, minimizer_select
+    from kmers_tpu_torch import parallel as par
+    from kmers_tpu_torch.ops.hashing import fx_hash_u64
+    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
+    from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows, canonical_windows_plain
+
+    pipe = importlib.import_module("kmers_tpu_torch.parallel.pipeline")
+    pmw = importlib.import_module("kmers_tpu_torch.parallel.multiword")
+    fold = {"canonical_windows": canonical_windows, "rle_unit": rle_unit,
+            "merge_tables": merge_tables, "compact_table": compact_table}
+    want_k, want_c = table_31
+    L = chrom.size
+    total = collections.Counter()
+
+    # K1 and K2 against their plain versions on rank 1's first slab chunk,
+    # cut to an odd length (not counted: the counts are reset before each run)
+    rows, shard = pipe._shard_with_halo(chrom, PARALLEL_RANKS, K, ord("N"))
+    view = torch.from_numpy(rows[1, : CHUNK - 1].copy()).to("cuda")
+    del rows
+    got = canonical_windows(view, K)
+    want = canonical_windows_plain(view.cpu(), K)
+    torch.cuda.synchronize()
+    require(max_abs_err(got, want) == 0.0, "K1 differs from plain on a slab chunk")
+    keys = torch.sort(got[0]).values
+    require(max_abs_err(rle_unit(keys), rle_unit_plain(keys.cpu())) == 0.0,
+            "K2 differs from plain on a slab chunk")
+    log(f"[parallel] K1 and K2 equal to plain on rank 1's first slab chunk ({view.numel()} bytes, "
+        f"shard {shard} bases)")
+    del view, got, want, keys
+
+    def count_31(tag: str, mesh) -> None:
+        for fn in fold.values():
+            fn.launches = 0
+        cfg = par.ShardedCountConfig(K=K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_exchanges(pipe, "exchange_and_merge") as calls:
+            kmers, counts = par.sharded_canonical_count(chrom, cfg, mesh)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fold.items()}
+        total.update(launches)
+        (call,) = calls
+        log(f"[parallel K={K}] {tag}: {mesh.size} rank(s) {[str(d) for d in mesh.devices]}, "
+            f"{wall:.3f} s wall, {L / wall:.0f} bases/s, cap {call['cap']}, overflow "
+            f"{call['overflow']}, {kmers.size} distinct ({smi})")
+        log(f"[parallel K={K}] {tag}: launches {launches}")
+        want_launches = _fold_geometry(mesh.size, L, K, cfg.chunk_size)
+        require(launches == want_launches, f"{tag}: launches {launches}, geometry gives {want_launches}")
+        require(call["overflow"] == 0, f"{tag}: overflow")
+        require(np.array_equal(kmers, want_k) and np.array_equal(counts, want_c),
+                f"{tag}: differs from the single-device table")
+        for rank, (keys, cnt, _) in zip(mesh.ranks, call["merged"]):
+            real = keys[cnt > 0]
+            require(bool((pipe.destination(fx_hash_u64(real), mesh.size) == rank).all()),
+                    f"{tag}: rank {rank} holds k-mers it does not own")
+        log(f"[parallel K={K}] {tag}: equal to the single-device table and the numpy reference; "
+            f"each rank's k-mers route to it")
+        if mesh.size > 1:
+            rows_in = sum(int(c.numel()) for _, c in call["tables"])
+            p_wall, busy, categories, _ = device_profile(
+                lambda: pipe.exchange_and_merge(call["tables"], mesh, call["cap"]), warm=True)
+            log(f"[parallel K={K}] {tag}: exchange of {rows_in} table rows ({mesh.size} x {mesh.size} "
+                f"buckets of {call['cap']}): {1e3 * busy:.3f} ms device time, {1e3 * p_wall:.3f} ms "
+                f"wall (torch.profiler; {smi})")
+            for cat, secs in categories.most_common(6):
+                log(f"[parallel K={K}] {tag}:   {cat}: {1e3 * secs:.3f} ms")
+
+    part = chrom[L // 3 - MW_SLICE // 2 : L // 3 + MW_SLICE // 2]  # holds the poly-A region
+    t0 = time.perf_counter()
+    want_mw = canonical_count_bytes(part, CountConfig(K=K_MW), device="cuda")
+    log(f"[parallel K={K_MW}] single device on {part.size} bases: {time.perf_counter() - t0:.3f} s")
+
+    def count_mw(tag: str, mesh) -> None:
+        canonical_words.launches = 0
+        t0 = time.perf_counter()
+        with capture_exchanges(pmw, "exchange_and_merge_mw") as calls:
+            kmers, counts = par.sharded_canonical_count_mw(part, K=K_MW, mesh=mesh)
+        wall = time.perf_counter() - t0
+        (call,) = calls
+        total["canonical_words"] += canonical_words.launches
+        log(f"[parallel K={K_MW}] {tag}: {mesh.size} rank(s), {part.size} bases, {wall:.3f} s wall, "
+            f"cap {call['cap']}, overflow {call['overflow']}, {kmers.size} distinct, K3 launches "
+            f"{canonical_words.launches} ({smi})")
+        require(canonical_words.launches == mesh.size, f"{tag}: K3 launched {canonical_words.launches} times")
+        require(np.array_equal(counts, want_mw[1]) and np.array_equal(kmers, want_mw[0]),
+                f"{tag}: K={K_MW} differs from the single-device table")
+
+    four = par.Mesh(["cuda:0"] * PARALLEL_RANKS)
+    # warm-up on 3 chunks' worth (first use of each torch kernel of the exchange)
+    par.sharded_canonical_count(chrom[: 3 * CHUNK], par.ShardedCountConfig(K=K), four)
+    count_31("data_mesh(1)", par.data_mesh(1))
+    count_31(f"{PARALLEL_RANKS} ranks on cuda:0", four)
+    count_mw(f"{PARALLEL_RANKS} ranks on cuda:0", four)
+
+    # minimizers over 4 ranks against minimizer_select on one device
+    want_min = minimizer_select(chrom, K=15, W=10, canonical=True, skip_ambiguous=True, device="cuda")
+    windows_general.launches = 0
+    t0 = time.perf_counter()
+    vals, pos = par.sharded_minimizer_select(chrom, K=15, W=10, mesh=four, skip_ambiguous=True)
+    wall = time.perf_counter() - t0
+    total["windows_general"] += windows_general.launches
+    log(f"[parallel minimizers] K=15 W=10 over {PARALLEL_RANKS} ranks: {wall:.3f} s wall, "
+        f"{vals.size} minimizers, K6 launches {windows_general.launches} ({smi})")
+    require(windows_general.launches == PARALLEL_RANKS, "sharded minimizers: K6 not once a rank")
+    require(np.array_equal(vals, want_min[0]) and np.array_equal(pos, want_min[1]),
+            "sharded minimizers differ from minimizer_select")
+
+    # one rank a process: an NCCL group of one, built here and torn down
+    # after; any failure to build it fails the run
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = par.data_mesh()
+        require(mesh.group is not None and mesh.size == 1 and mesh.devices == (torch.device("cuda", 0),),
+                f"NCCL mesh {mesh}")
+        buckets = torch.arange(2 * 1000 * 2, device="cuda").reshape(1, 2000, 2)
+        (back,) = mesh.all_to_all([buckets])
+        require(torch.equal(back, buckets), "NCCL all_to_all of one rank is not the identity")
+        require(mesh.sum([torch.tensor([3, 4])]) == [3, 4] and mesh.max([torch.tensor(5)]) == [5],
+                "NCCL reductions")
+        count_31("NCCL world size 1", mesh)
+        count_mw("NCCL world size 1", mesh)
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2227,7 +2433,11 @@ def main() -> int:
     chrom = synth_chromosome(CHR21_BASES, seed=21)
     log(f"[data] synthetic chromosome of {chrom.size} bases in {time.perf_counter() - t0:.1f} s")
     entries = phase_kernels(chrom)
-    launches_31 = phase_slice(chrom, smi)
+    launches_31, table_31 = phase_slice(chrom, smi)
+    t0 = time.perf_counter()
+    launches_parallel = phase_parallel(chrom, smi, table_31)
+    del table_31
+    log(f"[parallel] parallel phase in {time.perf_counter() - t0:.1f} s")
     launches_47 = phase_slice_mw(chrom, smi)
     t0 = time.perf_counter()
     launches_sketch = phase_sketch_extract(chrom, smi)
@@ -2251,7 +2461,8 @@ def main() -> int:
     # launches: each kernel's count over the paths that run it
     launches = (collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
                 + launches_sixframe + collections.Counter(launches_stream)
-                + collections.Counter(launches_sort) + collections.Counter(launches_checkpoint))
+                + collections.Counter(launches_sort) + collections.Counter(launches_checkpoint)
+                + launches_parallel)
     unused = [name for name in entries if not launches[name]]
     require(not unused, f"kernels never launched on their paths: {unused}")
     kernels = [

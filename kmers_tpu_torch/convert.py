@@ -136,10 +136,20 @@ def hashes_to_uint64(keys: torch.Tensor) -> np.ndarray:
     return (keys.detach() ^ SIGN_BIT).cpu().numpy().view(np.uint64)
 
 
-def table_from_jax(uh, ul, cnt, device=None):
+def _per_rank(arrays, n_ranks: int) -> list:
+    """Cut each array (the per-device blocks of a JAX sharded output, laid
+    end to end) into ``n_ranks`` equal blocks: one tuple a rank."""
+    return list(zip(*(np.split(np.asarray(x), n_ranks) for x in arrays)))
+
+
+def table_from_jax(uh, ul, cnt, device=None, n_ranks=None):
     """A JAX sentinel-interspersed count table (numpy ``uh, ul, cnt``) ->
     the port's front-packed table ``(keys, counts)``: its real rows
-    (count > 0), in order, as int64 tensors."""
+    (count > 0), in order, as int64 tensors.  With ``n_ranks`` the arrays
+    hold one equal block a device (a sharded output) and the result is a
+    list of each rank's table."""
+    if n_ranks is not None:
+        return [table_from_jax(*block, device) for block in _per_rank((uh, ul, cnt), n_ranks)]
     cnt = np.asarray(cnt)
     real = cnt > 0
     keys = keys_from_jax(np.asarray(uh)[real], np.asarray(ul)[real], device)
@@ -168,9 +178,11 @@ def _regroup(parts, part_bits: int, out_bits: int, n_out: int) -> list:
     return out
 
 
-def words_from_jax(limbs, K: int, device=None, bps: int = 2, valid=None) -> torch.Tensor:
+def words_from_jax(limbs, K: int, device=None, bps: int = 2, valid=None, n_ranks=None):
     """JAX ``M = ceil(bps K / 32)`` uint32 limbs (limb 0 most significant)
-    -> the port's ``(W, n)`` int64 words.
+    -> the port's ``(W, n)`` int64 words.  With ``n_ranks`` the limbs (and
+    ``valid``) hold one equal block a device (a sharded output) and the
+    result is a list of each rank's words.
 
     Invalid windows become :data:`SENTINEL` in every word: those where
     ``valid`` (the JAX validity stream, nonzero = real) is zero, or, with
@@ -179,6 +191,10 @@ def words_from_jax(limbs, K: int, device=None, bps: int = 2, valid=None) -> torc
     K ``T``'s, which is never canonical).  Any other register wider than
     ``bps K`` bits raises ``ValueError``.
     """
+    if n_ranks is not None:
+        blocks = _per_rank(limbs, n_ranks)
+        valids = [None] * n_ranks if valid is None else np.split(np.asarray(valid), n_ranks)
+        return [words_from_jax(b, K, device, bps, v) for b, v in zip(blocks, valids)]
     limbs = [np.asarray(x, np.uint32) for x in limbs]
     M = -(-bps * K // 32)
     if len(limbs) != M:

@@ -17,6 +17,8 @@ from .kernels.sort_kernel import bitonic_local_sort, bitonic_sort
 from .minimizer import closed_syncmer_mask, minimizers, minimizers_masked, sliding_min_u64
 from .multiword import (
     canonical_windows_mw,
+    fx_hash_mw,
+    n_limbs,
     canonical_windows_mw_bytes,
     merge_compact_tables_mw,
     sort_count_mw,
@@ -53,6 +55,8 @@ __all__ = [
     "bitonic_sort",
     "canonical_windows_mw",
     "canonical_windows_mw_bytes",
+    "n_limbs",
+    "fx_hash_mw",
     "sort_count_mw",
     "merge_compact_tables_mw",
     "translate_codes",

@@ -14,20 +14,25 @@ one-word machinery counts them: kernel K2 (``rle_unit``) for a chunk and
 the weighted ``_run_length_encode`` of ``ops/count.py`` for a merge.
 ``ops/count.py::compact_counts`` (kernel K10) front-packs word tables as
 well, every word plane with its column.  Word tables merge by this sort,
-not by kernel K9, whose keys are one word.
+not by kernel K9, whose keys are one word.  :func:`fx_hash_mw` is the JAX
+package's FxHash of multi-limb registers, which routes word tables in the
+sharded exchange (``parallel/multiword.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..convert import SENTINEL, WORD_BASES, n_words
+from ..convert import KEY_BITS_MAX, SENTINEL, SIGN_BIT, WORD_BASES, n_words
 from .count import _run_length_encode, compact_counts
 from .encode import classify_2bit
+from .hashing import FX_CONSTANT
 from .kernels.rle_kernel import rle_unit
 from .windows import window_valid_mask
 
 __all__ = [
+    "n_limbs",
+    "fx_hash_mw",
     "canonical_windows_mw",
     "canonical_windows_mw_bytes",
     "sort_count_mw",
@@ -166,3 +171,42 @@ def merge_compact_tables_mw(words_a, counts_a, words_b, counts_b):
     _, totals, n_unique = _run_length_encode(_run_ids(swords), counts[order])
     uniq = torch.where(totals > 0, swords, SENTINEL)
     return (*compact_counts(uniq, totals), n_unique)
+
+
+def n_limbs(K: int, bps: int = 2) -> int:
+    """The JAX package's 32-bit limbs of a register of K ``bps``-bit
+    symbols: ``ceil(bps K / 32)``."""
+    return -(-(K * bps) // 32)
+
+
+def _rotl5(h: torch.Tensor) -> torch.Tensor:
+    # the arithmetic right shift drags the sign along: mask it off
+    return (h << 5) | ((h >> 59) & 0x1F)
+
+
+def fx_hash_mw(words: torch.Tensor, K: int, bps: int = 2) -> torch.Tensor:
+    """Order keys (the sign bit flipped, as :func:`~.hashing.fx_hash_u64`)
+    of the seed-0 FxHash of ``(W, n)`` registers of K ``bps``-bit symbols.
+
+    Bit for bit the JAX ``fx_hash_mw`` over its ``M = n_limbs(K, bps)``
+    limbs: the register is cut big-endian into 64-bit words, the top word
+    holding what is left (its limb pairs, with a leading zero limb when M
+    is odd), and ``h = ((h rotl 5) ^ word) * FX`` folds them from the top.
+    The port's 62-bit words are regrouped into those 64-bit words first
+    (as ``convert._regroup``), with shifts that wrap in int64.  Sentinel
+    columns hash to arbitrary keys.
+    """
+    W = words.shape[0]
+    n64 = -(-n_limbs(K, bps) // 2)
+    h = torch.zeros(words.shape[1:], dtype=torch.int64, device=words.device)
+    for o in range(n64):
+        lo = 64 * (n64 - 1 - o)  # lowest register bit of this 64-bit word
+        piece = torch.zeros_like(h)
+        for p in range(W):
+            base = KEY_BITS_MAX * (W - 1 - p)
+            if base + KEY_BITS_MAX <= lo or base >= lo + 64:
+                continue  # no bit of word p falls in this piece
+            x = words[p]
+            piece |= (x << (base - lo)) if base >= lo else (x >> (lo - base))
+        h = (_rotl5(h) ^ piece) * FX_CONSTANT
+    return h ^ SIGN_BIT

@@ -20,9 +20,11 @@ __all__ = ["codon_set_table", "reverse_translate_codes"]
 
 
 @functools.lru_cache(maxsize=64)
-def codon_set_table(code: GeneticCode = standard_genetic_code, device="cpu") -> torch.Tensor:
-    """The code's 27 codon-set masks as an int64 tensor on ``device``
-    (cached per code and device)."""
+def codon_set_table(code: GeneticCode = standard_genetic_code, device="cuda") -> torch.Tensor:
+    """The code's 27 codon-set masks as an int64 tensor on ``device``, the
+    card unless the caller asks for the CPU (cached per code and device)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but torch.cuda.is_available() is false")
     masks = np.array(codon_set_masks(code), dtype=np.uint64).view(np.int64)
     return torch.from_numpy(masks).to(device)
 

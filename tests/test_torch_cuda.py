@@ -834,3 +834,95 @@ def test_cli_checkpoint_commands_on_cuda_match_cpu(cuda, tmp_path, capsys):
         assert outs["cuda"][0] == outs["cpu"][0] and outs["cuda"][0][-1]["ok"]
         got, want = outs["cuda"][1], outs["cpu"][1]
         assert [int(v) for v in got[0]] == [int(v) for v in want[0]] and np.array_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------- the parallel plane
+
+
+def _sharded_input(L, seed):
+    # the pool without its invalid byte and with fewer ambiguous ones
+    seq = _bytes(L, seed)
+    seq[np.isin(seq, np.frombuffer(b"-RYKM", np.uint8))] = ord("G")
+    return seq
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+@pytest.mark.parametrize("chunk", [1 << 20, 1 << 17])
+def test_sharded_count_on_cuda_matches_cpu(cuda, ranks, chunk):
+    from kmers_tpu_torch import parallel as par
+
+    seq = _sharded_input(1_000_003, 21)
+    mesh = par.data_mesh(1) if ranks == 1 else par.Mesh(["cuda:0"] * ranks)
+    cfg = par.ShardedCountConfig(K=31, chunk_size=chunk)
+    before = canonical_windows.launches, rle_unit.launches, merge_tables.launches
+    got = par.sharded_canonical_count(seq, cfg, mesh)
+    shard = -(-seq.size // ranks)
+    steps = len(range(0, shard, chunk - 30)) if shard > chunk else 1
+    assert canonical_windows.launches - before[0] == ranks * steps
+    assert rle_unit.launches - before[1] == ranks * steps
+    assert merge_tables.launches - before[2] == ranks * (steps - 1)
+    want = canonical_count_bytes(seq, CountConfig(K=31), device="cpu")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_sharded_multiword_and_minimizers_on_cuda_match_cpu(cuda):
+    from kmers_tpu_torch import parallel as par
+
+    mesh = par.Mesh(["cuda:0"] * 4)
+    seq = _sharded_input(300_001, 22)
+    before = canonical_words.launches
+    got = par.sharded_canonical_count_mw(seq, K=47, mesh=mesh)
+    assert canonical_words.launches - before == 4
+    want = canonical_count_bytes(seq, CountConfig(K=47), device="cpu")
+    assert [int(x) for x in got[0]] == [int(x) for x in want[0]] and np.array_equal(got[1], want[1])
+    before = windows_general.launches
+    got = par.sharded_minimizer_select(seq, K=15, W=10, mesh=mesh, skip_ambiguous=True)
+    assert windows_general.launches - before == 4
+    want = tex.minimizer_select(seq, K=15, W=10, skip_ambiguous=True, device="cpu")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+NCCL_SCRIPT = r"""
+import json, socket, sys
+import numpy as np
+import torch.distributed as dist
+from kmers_tpu_torch import parallel as par
+
+seq = np.fromfile(sys.argv[1], np.uint8)
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+try:
+    mesh = par.data_mesh()
+    k, c = par.sharded_canonical_count(seq, par.ShardedCountConfig(K=31, chunk_size=1 << 17), mesh)
+    k47, c47 = par.sharded_canonical_count_mw(seq, K=47, mesh=mesh)
+    print(json.dumps({"devices": [str(d) for d in mesh.devices], "size": mesh.size,
+                      "grouped": mesh.group is not None, "k31": [k.tolist(), c.tolist()],
+                      "k47": [[str(int(x)) for x in k47], c47.tolist()]}))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_sharded_count_over_nccl_world_size_one(cuda, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    seq = _sharded_input(400_009, 23)
+    seq.tofile(tmp_path / "seq.bin")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", NCCL_SCRIPT, str(tmp_path / "seq.bin")], cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["devices"] == ["cuda:0"] and out["size"] == 1 and out["grouped"]
+    want = canonical_count_bytes(seq, CountConfig(K=31), device="cpu")
+    assert out["k31"] == [want[0].tolist(), want[1].tolist()]
+    want = canonical_count_bytes(seq, CountConfig(K=47), device="cpu")
+    assert out["k47"] == [[str(int(x)) for x in want[0]], want[1].tolist()]

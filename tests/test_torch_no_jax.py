@@ -2,7 +2,9 @@
 ``kmers_tpu``: a fresh interpreter imports ``kmers_tpu_torch``, runs the
 counting path (K = 7 and K = 40), minhash sketching, extraction,
 minimizers, six-frame counting (K = 7 and K = 15), a ``StreamingCounter``,
-``merge_counts_device``, ``bench`` at a small L, the bitonic sort, the native
+``merge_counts_device``, ``bench`` at a small L, the bitonic sort, the
+parallel plane (sharded counting at K = 7 and K = 40 and sharded minimizers
+over three CPU ranks), the native
 FASTA scanner, a count-table checkpoint round trip, ``profile_step`` and the
 CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``,
 ``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
@@ -33,6 +35,7 @@ SCRIPT = f"""
 import json, sys
 import torch
 import kmers_tpu_torch
+from kmers_tpu_torch import parallel as par
 from kmers_tpu_torch.__main__ import main
 from kmers_tpu_torch.io import native_available, read_fastx
 from kmers_tpu_torch.ops import bitonic_sort
@@ -53,6 +56,10 @@ aa7, aa_counts7 = kmers_tpu_torch.sixframe_aa_count(
 aa15, aa_counts15 = kmers_tpu_torch.sixframe_aa_count(
     {DATA_AA!r}, kmers_tpu_torch.SixFrameCountConfig(K=15, chunk_size=100), device="cpu",
 )
+mesh = par.data_mesh(3, device="cpu")
+pk, pc = par.sharded_canonical_count({DATA!r}, par.ShardedCountConfig(K=7, chunk_size=100), mesh)
+pk40, pc40 = par.sharded_canonical_count_mw({DATA_40!r}, K=40, mesh=mesh)
+pmins, _ = par.sharded_minimizer_select({DATA!r}, K=7, W=4, mesh=mesh, skip_ambiguous=True)
 sc = kmers_tpu_torch.StreamingCounter(kmers_tpu_torch.CountConfig(K=7, chunk_size=100), device="cpu")
 sc.update({DATA!r})
 streamed, streamed_counts = sc.finalize()
@@ -77,6 +84,9 @@ print(json.dumps({{
     "sketch": int(sketch.size),
     "extracted": int(vals.size),
     "minimizers": bool(mins.size),
+    "sharded": pk.tolist() == kmers.tolist() and pc.tolist() == counts.tolist(),
+    "sharded40": [int(x) for x in pk40] == [int(x) for x in kmers40] and pc40.tolist() == counts40.tolist(),
+    "sharded_minimizers": pmins.tolist() == mins.tolist(),
     "aa7": int(aa_counts7.sum()),
     "aa15": int(aa_counts15.sum()),
     "streamed": int(streamed_counts.sum()),
@@ -113,7 +123,7 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert verified["ok"] and verified["inputs_checked"] == 1
     assert json.loads(lines[-1]) == {
         "total": TOTAL, "total40": 4 * 30 - 40 + 1, "sketch": 5, "extracted": TOTAL,
-        "minimizers": True, "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
+        "minimizers": True, "sharded": True, "sharded40": True, "sharded_minimizers": True, "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
         "streamed": TOTAL, "merged": 2 * TOTAL,
         "bench": ["metric", "unit", "value", "vs_baseline"], "sorted": True, "native": True,
         "checkpoint": True, "profiled": 3, "jax": False, "kmers_tpu": [],
@@ -131,6 +141,9 @@ def test_sources_hold_the_new_modules():
     assert {
         "kmers_tpu_torch/io/native/__init__.py", "kmers_tpu_torch/utils/checkpoint.py",
         "kmers_tpu_torch/utils/profiling.py", "kmers_tpu_torch/ops/kernels/sort_kernel.py",
+        "kmers_tpu_torch/parallel/__init__.py", "kmers_tpu_torch/parallel/mesh.py",
+        "kmers_tpu_torch/parallel/pipeline.py", "kmers_tpu_torch/parallel/minimizers.py",
+        "kmers_tpu_torch/parallel/multiword.py",
     } <= names
 
 

@@ -73,7 +73,7 @@ def test_reverse_translate_matches_jax(number):
     assert got.dtype == torch.int64
     assert np.array_equal(got.numpy().view(np.uint64), _u64(hi, lo))
     thi, tlo = jrt.codon_set_table(jcode)
-    table = trt.codon_set_table(tgc.ncbi_trans_table[number])
+    table = trt.codon_set_table(tgc.ncbi_trans_table[number], device="cpu")
     assert np.array_equal(table.numpy().view(np.uint64), _u64(thi, tlo))
 
 
@@ -84,3 +84,13 @@ def test_reverse_translate_rejects_gap_and_out_of_range(bad):
         jrt.reverse_translate_codes(aa)
     with pytest.raises(ValueError, match="Cannot reverse translate"):
         trt.reverse_translate_codes(aa)
+
+
+def test_codon_set_table_defaults_to_the_card():
+    import inspect
+
+    assert inspect.signature(trt.codon_set_table).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        # no quiet fallback to the CPU
+        with pytest.raises(RuntimeError, match="cuda"):
+            trt.codon_set_table(tgc.ncbi_trans_table[2])
