@@ -51,7 +51,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    slab chunk cut to an odd length; ``sharded_canonical_count_mw`` at
    K = 47 on 4 Mb over 4 ranks and over NCCL (one K3 launch a rank) and
    ``sharded_minimizer_select`` at K = 15, W = 10 over 4 ranks (one K6
-   launch a rank), each equal to the single-device result;
+   launch a rank), each equal to the single-device result (the sharded
+   six-frame runs follow phase 7);
 5. slice K = 47 (multi-word registers, K3): the same chromosome, checks and
    launch counts (K10 only: word tables merge by sorting), a stage
    breakdown with synchronising timers; then a few hundred kb at K = 63 (K3,
@@ -72,7 +73,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
    K = 15), wall time, amino-acid windows per second, the fold's stream
    time and a ``torch.profiler`` breakdown; K = 15 on the first 8 Mb (K5,
    the word path) and K = 8 and 32 on 1 Mb, each equal to numpy; the CLI's
-   ``sixframe`` on a 3-record FASTA equal to a string counter;
+   ``sixframe`` on a 3-record FASTA equal to a string counter; then
+   sharded six-frame counting (``phase_parallel_sixframe``): K4 and K5
+   against plain on a rank's first and last slab chunks with the rank's
+   bounds, K = 7 on the whole chromosome over ``data_mesh(1)``, over 4
+   ranks on ``cuda:0`` and over an NCCL group of one rank, each equal to
+   the single-device K = 7 table, and K = 12 (K5, two words) on 1 Mb over
+   4 ranks and over NCCL, equal to one device and to numpy; in each run
+   every rank's k-mers routed to it and the launches of K4 or K5, K2, K9
+   and K10 equal to the slab and chunk geometry, with the wall, the
+   amino-acid windows/s, ``cap`` and the exchange's device time; the
+   CLI's ``sixframe`` on a 1 Mb FASTA equal to one device;
 8. streaming, tables, bench: ``count_fastx_stream`` over a FASTQ of
    400,000 reads of 150 bp sampled from the chromosome (half of them
    reverse-complemented) in batches of 16 MiB, equal to the numpy
@@ -138,6 +149,7 @@ GENERAL_CASES = [(2, 31, True), (2, 16, False), (4, 15, True), (4, 9, False), (4
                  (8, 7, False), (8, 1, False)]
 K_AA = 7  # six-frame counting: K4's widest K, the JAX package's default
 K_AA_MW = 15
+K_AA_WIDE = 12  # sharded six-frame on K5: two words
 #: K4's and K5's K on the views aimed at their frame-major tiles
 SIXFRAME_EDGE_KS = (1, 2, 7, 8, 10, 15, 23, 31, 32)
 READS, READ_LEN = 400_000, 150  # the streamed read set (phase 8)
@@ -1764,7 +1776,7 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
     """Six-frame amino-acid counting: K = 7 on the whole chromosome (K4,
     sort, K2), K = 15 on 8 Mb (K5, the word path), K = 8 and 32 on 1 Mb,
     each against the numpy reference; the CLI.  Returns the launch counts
-    of the K = 7 and K = 15 runs, summed."""
+    of the K = 7 and K = 15 runs, summed, and the K = 7 table."""
     import torch
 
     from kmers_tpu_torch import SixFrameCountConfig, sixframe_aa_count
@@ -1809,7 +1821,7 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
     require(np.array_equal(kmers, ref_l[0]) and np.array_equal(counts, ref_c),
             "six-frame counts differ from the numpy reference")
     log(f"[sixframe K={K_AA}] equal to the numpy reference")
-    del ref_l, ref_c, kmers, counts
+    del ref_l, ref_c
 
     head = chrom[:100_000]
     got = sixframe_aa_count(head, cfg, device="cuda")
@@ -1855,7 +1867,7 @@ def phase_sixframe(chrom: np.ndarray, smi: str):
     require(totals == {"distinct": len(want), "total": sum(want.values())},
             f"CLI sixframe totals {totals}")
     log(f"[sixframe K={K_AA}] CLI on a 3-record FASTA: {totals}, equal to the string counter")
-    return launches
+    return launches, (kmers, counts)
 
 
 def sample_reads(chrom: np.ndarray, n: int, length: int, seed: int) -> np.ndarray:
@@ -2420,6 +2432,163 @@ def phase_parallel(chrom: np.ndarray, smi: str, table_31) -> collections.Counter
     return total
 
 
+def _sixframe_geometry(n_ranks: int, L: int, k: int, chunk: int, words: bool) -> dict:
+    """K4 (or K5), K2, K9 and K10 launches of a sharded six-frame count: a
+    rank's slab of ``shard + 6k`` bytes streams in chunks that overlap by
+    3k - 1, each one front-end and one K2 launch; more than one chunk adds
+    one K10 a chunk and, for each of the chunks - 1 merges, one K10 and
+    (one-word tables only) one K9."""
+    shard = -(-L // n_ranks)
+    shard += (-shard) % 3
+    steps = len(range(0, shard + 3 * k + 1, chunk - (3 * k - 1)))
+    front = "sixframe_words" if words else "sixframe_windows"
+    return {front: n_ranks * steps, "rle_unit": n_ranks * steps,
+            "merge_tables": 0 if words else n_ranks * (steps - 1),
+            "compact_table": n_ranks * (2 * steps - 1) if steps > 1 else 0}
+
+
+def phase_parallel_sixframe(chrom: np.ndarray, smi: str, table_7) -> collections.Counter:
+    """Sharded six-frame counting (``sharded_sixframe_aa_count``): K = 7 on
+    the whole chromosome over ``data_mesh(1)``, over 4 ranks on ``cuda:0``
+    and over an NCCL process group of one rank, each equal to the
+    single-device table of ``phase_sixframe`` (itself equal to the numpy
+    reference); K = 12 (K5, two words) on 1 Mb over 4 ranks and over NCCL,
+    equal to the single-device result and to numpy.  In each run every
+    rank's k-mers route to it and the launches of K4 or K5, K2, K9 and K10
+    equal the slab and chunk geometry.  K4 and K5 are held against their
+    plain versions first, on a rank's first and last slab chunks with the
+    rank's bounds; the CLI's ``sixframe`` runs on a 1 Mb FASTA.  Returns
+    the launches of the driven runs."""
+    import torch
+    import torch.distributed as dist
+
+    from kmers_tpu_torch import SixFrameCountConfig, sixframe_aa_count
+    from kmers_tpu_torch import parallel as par
+    from kmers_tpu_torch.ops.hashing import fx_hash_u64
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
+    from kmers_tpu_torch.ops.kernels.sixframe_kernel import (
+        sixframe_windows,
+        sixframe_windows_plain,
+        sixframe_words,
+        sixframe_words_plain,
+    )
+    from kmers_tpu_torch.ops.multiword import fx_hash_mw
+
+    pipe = importlib.import_module("kmers_tpu_torch.parallel.pipeline")
+    psix = importlib.import_module("kmers_tpu_torch.parallel.sixframe")
+    fold = {"sixframe_windows": sixframe_windows, "sixframe_words": sixframe_words, "rle_unit": rle_unit,
+            "merge_tables": merge_tables, "compact_table": compact_table}
+    L = chrom.size
+    part = chrom[L // 3 - CHUNK // 2 : L // 3 + CHUNK // 2]
+    total = collections.Counter()
+
+    # K4 and K5 against their plain versions on rank 1's first and last slab
+    # chunks, with the rank's ownership bounds (not counted: the counts are
+    # reset before each run)
+    for k, seq, kernel, plain in ((K_AA, chrom, sixframe_windows, sixframe_windows_plain),
+                                  (K_AA_WIDE, part, sixframe_words, sixframe_words_plain)):
+        rows, shard = psix._sixframe_slabs(seq, PARALLEL_RANKS, k)
+        H = 3 * k
+        slab = rows[1]
+        starts = range(0, slab.size - 3 * k + 1, CHUNK - (3 * k - 1))
+        for start in sorted({starts[0], starts[-1]}):
+            view = torch.from_numpy(slab[start : start + CHUNK].copy()).to("cuda")
+            bounds = (H - start, H + shard - start, 1 - start, shard + 1 - start)
+            got = kernel(view, k, bounds)
+            want = plain(view.cpu(), k, bounds)
+            torch.cuda.synchronize()
+            require(max_abs_err(got, want) == 0.0, f"{kernel.__name__} differs from plain on a slab chunk at K={k}")
+            log(f"[parallel sixframe K={k}] {kernel.__name__} equal to plain on rank 1's slab chunk at "
+                f"{start} ({view.numel()} bytes, bounds {bounds}, {int(got[1])} windows emitted)")
+        del rows, slab, view, got, want
+
+    def run(tag: str, mesh, k: int, seq, want) -> None:
+        for fn in fold.values():
+            fn.launches = 0
+        cfg = par.SixFrameCountConfig(K=k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_exchanges(psix, "_exchange_tables") as calls:
+            kmers, counts = par.sharded_sixframe_aa_count(seq, cfg, mesh)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fold.items()}
+        total.update(launches)
+        (call,) = calls
+        windows = int(counts.sum())
+        log(f"[parallel sixframe K={k}] {tag}: {mesh.size} rank(s) {[str(d) for d in mesh.devices]}, "
+            f"{seq.size} bases, {wall:.3f} s wall, {windows / wall:.0f} amino-acid windows/s, cap "
+            f"{call['cap']}, overflow {call['overflow']}, {kmers.size} distinct ({smi})")
+        log(f"[parallel sixframe K={k}] {tag}: launches {launches}")
+        want_launches = {name: 0 for name in fold}
+        want_launches.update(_sixframe_geometry(mesh.size, seq.size, k, cfg.chunk_size, k > K_AA))
+        require(launches == want_launches, f"{tag}: launches {launches}, geometry gives {want_launches}")
+        require(call["overflow"] == 0, f"{tag}: overflow")
+        require(kmers.dtype == want[0].dtype and counts.dtype == np.int64
+                and np.array_equal(counts, want[1]) and np.array_equal(kmers, want[0]),
+                f"{tag}: K={k} differs from the single-device table")
+        for rank, (keys, cnt, _) in zip(mesh.ranks, call["merged"]):
+            real = keys[..., cnt > 0]
+            hashes = fx_hash_u64(real) if k <= K_AA else fx_hash_mw(real, k, bps=8)
+            require(bool((pipe.destination(hashes, mesh.size) == rank).all()),
+                    f"{tag}: rank {rank} holds k-mers it does not own")
+        log(f"[parallel sixframe K={k}] {tag}: equal to the single-device table; each rank's k-mers "
+            f"route to it")
+        if mesh.size > 1:
+            rows_in = sum(int(c.numel()) for _, c in call["tables"])
+            p_wall, busy, categories, _ = device_profile(
+                lambda: psix._exchange_tables(call["tables"], mesh, call["cap"], k), warm=True)
+            log(f"[parallel sixframe K={k}] {tag}: exchange of {rows_in} table rows ({mesh.size} x "
+                f"{mesh.size} buckets of {call['cap']}): {1e3 * busy:.3f} ms device time, "
+                f"{1e3 * p_wall:.3f} ms wall (torch.profiler; {smi})")
+            for cat, secs in categories.most_common(6):
+                log(f"[parallel sixframe K={k}] {tag}:   {cat}: {1e3 * secs:.3f} ms")
+
+    t0 = time.perf_counter()
+    want_wide = sixframe_aa_count(part, SixFrameCountConfig(K=K_AA_WIDE), device="cuda")
+    log(f"[parallel sixframe K={K_AA_WIDE}] single device on {part.size} bases: {time.perf_counter() - t0:.3f} s")
+    ref_l, ref_c = numpy_sixframe(part, K_AA_WIDE, codon_table_from_ncbi(NCBI_STANDARD))
+    require(np.array_equal(want_wide[1], ref_c) and want_wide[0].tolist() == join_limbs(ref_l).tolist(),
+            f"six-frame K={K_AA_WIDE} differs from the numpy reference")
+    del ref_l, ref_c
+
+    four = par.Mesh(["cuda:0"] * PARALLEL_RANKS)
+    # warm-up on 3 chunks' worth (first use of each torch kernel of the exchange)
+    par.sharded_sixframe_aa_count(chrom[: 3 * CHUNK], par.SixFrameCountConfig(K=K_AA), four)
+    run("data_mesh(1)", par.data_mesh(1), K_AA, chrom, table_7)
+    run(f"{PARALLEL_RANKS} ranks on cuda:0", four, K_AA, chrom, table_7)
+    run(f"{PARALLEL_RANKS} ranks on cuda:0", four, K_AA_WIDE, part, want_wide)
+
+    # the CLI's sixframe, sharded over the card, on a FASTA of 1 Mb in two
+    # records, against the single-device count of the records joined with N
+    records = [chrom[L // 2 : L // 2 + CHUNK // 2], chrom[L // 5 : L // 5 + CHUNK // 2]]
+    joined = np.concatenate([records[0], np.frombuffer(b"N", np.uint8), records[1]])
+    want = sixframe_aa_count(joined, SixFrameCountConfig(K=K_AA), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = Path(tmp) / "mb.fa"
+        _fasta(fa, records)
+        totals = json.loads(_cli("sixframe", str(fa), "-k", str(K_AA)))
+    require(totals == {"distinct": int(want[0].size), "total": int(want[1].sum())},
+            f"CLI sixframe on 1 Mb: {totals}")
+    log(f"[parallel sixframe K={K_AA}] CLI on a 1 Mb FASTA: {totals}, equal to one device")
+
+    # one rank a process: an NCCL group of one, built here and torn down after
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = par.data_mesh()
+        require(mesh.group is not None and mesh.size == 1, f"NCCL mesh {mesh}")
+        # the group's first collectives build its communicator: not timed
+        require(mesh.sum([torch.tensor([3, 4])]) == [3, 4] and mesh.max([torch.tensor(5)]) == [5],
+                "NCCL reductions")
+        par.sharded_sixframe_aa_count(chrom[: 3 * CHUNK], par.SixFrameCountConfig(K=K_AA), mesh)
+        run("NCCL world size 1", mesh, K_AA, chrom, table_7)
+        run("NCCL world size 1", mesh, K_AA_WIDE, part, want_wide)
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2443,8 +2612,12 @@ def main() -> int:
     launches_sketch = phase_sketch_extract(chrom, smi)
     log(f"[sketch] minhash + extract phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches_sixframe = phase_sixframe(chrom, smi)
+    launches_sixframe, table_7 = phase_sixframe(chrom, smi)
     log(f"[sixframe] six-frame phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_parallel += phase_parallel_sixframe(chrom, smi, table_7)
+    del table_7
+    log(f"[parallel sixframe] sharded six-frame phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_stream = phase_stream(chrom, smi)
     log(f"[stream] streaming, tables and bench phase in {time.perf_counter() - t0:.1f} s")

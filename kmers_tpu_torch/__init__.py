@@ -17,6 +17,9 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
   multi-word registers, the device table fold (merge and compaction),
   the bitonic sort (on no default path), and the hand-written CUDA kernels
   in ``ops.kernels`` (sources in ``csrc/``).
+- ``parallel``: the sharded pipelines over a mesh of ranks (one process
+  or a ``torch.distributed`` group): canonical counting, minimizers and
+  six-frame counting.
 - ``pipelines``: canonical k-mer counting for 1 <= K <= 100 and
   composition vectors; streamed counting (``StreamingCounter``,
   ``count_fastx_stream``) and the count-table algebra (``merge_counts``,
@@ -29,8 +32,10 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
 - ``genetic_codes``, ``revtrans``: the NCBI genetic codes and their
   codon-set masks, for translation (``ops.translate_ops``) and reverse
   translation (``ops.revtrans_ops``).
-- ``symbols``, ``kmer``, ``io``: ``EncodeError``, a 2-bit DNA ``Kmer``,
-  and a FASTA/FASTQ reader and batch streamer (a native C++ scanner built
+- ``symbols``, ``alphabets``, ``random``, ``kmer``, ``io``: ``EncodeError``
+  and the ``DNA``, ``RNA`` and ``AminoAcid`` symbols, the alphabets and
+  their ASCII tables, random K-mer registers made on the device
+  (``rand_kmers_device``), a 2-bit DNA ``Kmer``, and a FASTA/FASTQ reader and batch streamer (a native C++ scanner built
   by g++ at first use, pure Python where it cannot be built).
 - ``utils``: checked mode, metrics, the level stack, the drain queue,
   count-table checkpoints and profiling hooks.
@@ -39,6 +44,19 @@ Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on
 ``"cpu"`` their plain torch versions.
 """
 
+from .alphabets import (
+    ASCII_SKIPPING_LUT,
+    Alphabet,
+    AminoAcidAlphabet,
+    CharAlphabet,
+    DNAAlphabet,
+    DNAAlphabet2,
+    DNAAlphabet4,
+    NucleicAcidAlphabet,
+    RNAAlphabet,
+    RNAAlphabet2,
+    RNAAlphabet4,
+)
 from .convert import SENTINEL
 from .genetic_codes import GeneticCode, ncbi_trans_table, standard_genetic_code
 from .pipelines import (
@@ -69,8 +87,27 @@ from .pipelines import (
     subtract_counts,
     syncmer_select,
 )
+from .random import rand_kmers_device
+from .symbols import DNA, RNA, AminoAcid, EncodeError, NucleicAcid
 
 __all__ = [
+    "DNA",
+    "RNA",
+    "AminoAcid",
+    "NucleicAcid",
+    "EncodeError",
+    "Alphabet",
+    "NucleicAcidAlphabet",
+    "DNAAlphabet",
+    "DNAAlphabet2",
+    "DNAAlphabet4",
+    "RNAAlphabet",
+    "RNAAlphabet2",
+    "RNAAlphabet4",
+    "AminoAcidAlphabet",
+    "CharAlphabet",
+    "ASCII_SKIPPING_LUT",
+    "rand_kmers_device",
     "SENTINEL",
     "CountConfig",
     "canonical_count",

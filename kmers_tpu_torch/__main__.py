@@ -9,7 +9,8 @@ stdout and stderr and the same exit codes:
   the device through kernels K9 and K10, K > 31 tables on the host);
 - ``verify``: check a checkpoint's recorded inputs (size and sha256);
 - ``sketch``, ``dist``: MinHash sketches and Mash distances;
-- ``sixframe``: six-frame amino-acid K-mer counting (on one device);
+- ``sixframe``: six-frame amino-acid K-mer counting, sharded over every
+  GPU as the JAX CLI shards over every device (one rank on the CPU);
 - ``bench``: the headline throughput benchmark.
 
 Every command that computes takes ``--device`` (``cuda``, the default, or
@@ -184,12 +185,15 @@ def cmd_dist(args):
 
 def cmd_sixframe(args):
     from .io import read_fastx
-    from .pipelines import SixFrameCountConfig, join_records_with_n, sixframe_aa_count
+    from .parallel import SixFrameCountConfig, data_mesh, sharded_sixframe_aa_count
+    from .pipelines import join_records_with_n
 
     seq, off = read_fastx(args.input)
-    kmers, counts = sixframe_aa_count(
-        join_records_with_n(seq, off).tobytes(), SixFrameCountConfig(K=args.k),
-        device=args.device,
+    # sharded as the JAX CLI's: every GPU (or the process group's ranks);
+    # one rank on the CPU
+    kmers, counts = sharded_sixframe_aa_count(
+        join_records_with_n(seq, off), SixFrameCountConfig(K=args.k),
+        data_mesh(device=args.device),
     )
     print(json.dumps({"distinct": int(kmers.size), "total": int(counts.sum())}))
 

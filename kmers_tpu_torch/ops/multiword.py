@@ -4,7 +4,9 @@ Counterpart of ``kmers_tpu/ops/multiword.py``, in the word convention of
 ``convert.py``: a register is ``W = ceil(K / 31)`` int64 words of 62 bits,
 word 0 the most significant, :data:`SENTINEL` in every word of an invalid
 window.  Windows are in natural position order: column ``i`` is the
-window of positions ``[i, i + K)``.
+window of positions ``[i, i + K)``.  :func:`windows_mw` and
+:func:`rc_windows_mw` build registers of any width (2, 4 or 8 bits a
+symbol for the forward ones).
 
 Counting sorts the columns lexicographically with the one library call
 of the path, ``torch.sort`` (as ``lax.sort`` is in JAX): W stable passes,
@@ -26,12 +28,14 @@ import torch
 from ..convert import KEY_BITS_MAX, SENTINEL, SIGN_BIT, WORD_BASES, n_words
 from .count import _run_length_encode, compact_counts
 from .encode import classify_2bit
-from .hashing import FX_CONSTANT
+from .hashing import FX_CONSTANT, _rotl5
 from .kernels.rle_kernel import rle_unit
-from .windows import window_valid_mask
+from .windows import or_field, window_valid_mask
 
 __all__ = [
     "n_limbs",
+    "windows_mw",
+    "rc_windows_mw",
     "fx_hash_mw",
     "canonical_windows_mw",
     "canonical_windows_mw_bytes",
@@ -66,6 +70,36 @@ def _reverse_complement(codes: torch.Tensor, width: int) -> torch.Tensor:
     for j in range(width):
         reg = reg | ((3 - codes[j : j + n]) << (2 * j))
     return reg
+
+
+def _field_windows(codes: torch.Tensor, K: int, bps: int, lo_of) -> torch.Tensor:
+    """``(n_words(K, bps), L - K + 1)`` words of the registers that hold
+    ``codes[i + j]`` in bits ``[lo_of(j), lo_of(j) + bps)``."""
+    n = max(codes.shape[0] - K + 1, 0)
+    words = [torch.zeros(n, dtype=torch.int64, device=codes.device) for _ in range(n_words(K, bps))]
+    c = codes.to(torch.int64)
+    for j in range(K):
+        or_field(words, c[j : j + n], lo_of(j), bps)
+    return torch.stack(words)
+
+
+def windows_mw(codes: torch.Tensor, K: int, bps: int = 2) -> torch.Tensor:
+    """Forward registers of every K-window of a ``bps``-bit code stream, at
+    any width: ``(n_words(K, bps), L - K + 1)`` int64 words, the first
+    symbol in the highest bits (the JAX ``windows_mw``'s limbs, regrouped).
+    Codes must be below ``2^bps``."""
+    if K < 1:
+        raise ValueError("K must be >= 1")
+    return _field_windows(codes, K, bps, lambda j: bps * (K - 1 - j))
+
+
+def rc_windows_mw(codes: torch.Tensor, K: int) -> torch.Tensor:
+    """Reverse-complement registers of every K-window of a 2-bit code
+    stream, at any width, aligned with :func:`windows_mw`: base ``j``'s
+    complement lands in bits ``2j``."""
+    if K < 1:
+        raise ValueError("K must be >= 1")
+    return _field_windows(codes.to(torch.int64) ^ 3, K, 2, lambda j: 2 * j)
 
 
 def canonical_windows_mw(codes: torch.Tensor, K: int) -> torch.Tensor:
@@ -177,11 +211,6 @@ def n_limbs(K: int, bps: int = 2) -> int:
     """The JAX package's 32-bit limbs of a register of K ``bps``-bit
     symbols: ``ceil(bps K / 32)``."""
     return -(-(K * bps) // 32)
-
-
-def _rotl5(h: torch.Tensor) -> torch.Tensor:
-    # the arithmetic right shift drags the sign along: mask it off
-    return (h << 5) | ((h >> 59) & 0x1F)
 
 
 def fx_hash_mw(words: torch.Tensor, K: int, bps: int = 2) -> torch.Tensor:

@@ -31,10 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from ..convert import KEY_BITS_MAX, SENTINEL, n_words
+from ..convert import SENTINEL, n_words
 from ..genetic_codes import GeneticCode, sixframe_tbl16, standard_genetic_code
 from .encode import classify_2bit
-from .windows import window_valid_mask
+from .windows import or_field, window_valid_mask
 
 __all__ = ["sixframe_windows_from_bytes", "sixframe_words_from_bytes", "K_MAX"]
 
@@ -98,23 +98,6 @@ def sixframe_windows_from_bytes(
     return keys, n_valid
 
 
-def _or_byte(words: list, aa: torch.Tensor, j: int) -> None:
-    """OR an amino-acid stream into bits ``[8j, 8j + 8)`` of the register
-    held in ``words`` (word 0 most significant, 62 bits each): one word,
-    or two where the byte straddles a word boundary."""
-    W = len(words)
-    for q in range(W):  # q: word counted from the least significant
-        lo = KEY_BITS_MAX * q
-        if 8 * j + 8 <= lo or 8 * j >= lo + KEY_BITS_MAX:
-            continue
-        if 8 * j >= lo:
-            s = 8 * j - lo
-            # keep the bits that land in this word, so the shift cannot overflow
-            words[W - 1 - q] |= (aa & ((1 << (KEY_BITS_MAX - s)) - 1)) << s
-        else:
-            words[W - 1 - q] |= aa >> (lo - 8 * j)
-
-
 def sixframe_words_from_bytes(
     bytes_u8: torch.Tensor, K: int, bounds, code: GeneticCode = standard_genetic_code
 ):
@@ -133,8 +116,8 @@ def sixframe_words_from_bytes(
     fw = [torch.zeros(m, dtype=torch.int64, device=bytes_u8.device) for _ in range(W)]
     rv = [torch.zeros_like(fw[0]) for _ in range(W)]
     for k in range(K):
-        _or_byte(fw, aa_f[3 * k : 3 * k + m], K - 1 - k)
-        _or_byte(rv, aa_r[3 * k : 3 * k + m], k)
+        or_field(fw, aa_f[3 * k : 3 * k + m], 8 * (K - 1 - k), 8)
+        or_field(rv, aa_r[3 * k : 3 * k + m], 8 * k, 8)
     emit_f, emit_r, n_valid = _emit_masks(certain, K, bounds)
     words[:, :m] = torch.where(emit_f, torch.stack(fw), SENTINEL)
     words[:, n : n + m] = torch.where(emit_r, torch.stack(rv), SENTINEL)

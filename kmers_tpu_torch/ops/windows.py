@@ -2,7 +2,8 @@
 
 Counterparts of ``kmers_tpu/ops/windows.py`` (``windows_from_codes``,
 ``rc_windows_from_codes``, ``canonical_windows_from_codes``,
-``canonical_windows_4bit_from_codes``, ``window_valid_mask``), in natural
+``rc_windows_4bit_from_codes``, ``canonical_windows_4bit_from_codes``,
+``window_valid_mask``), in natural
 position order: entry ``i`` is the window of positions ``[i, i + K)``,
 first symbol in the highest bits (the scalar ``Kmer`` layout).  Registers
 are int64; one of 64 bits (K = 32 at 2 bits, K = 16 at 4) is a raw bit
@@ -16,12 +17,13 @@ from __future__ import annotations
 
 import torch
 
-from ..convert import SIGN_BIT
+from ..convert import KEY_BITS_MAX, SIGN_BIT
 
 __all__ = [
     "windows_from_codes",
     "rc_windows_from_codes",
     "canonical_windows_from_codes",
+    "rc_windows_4bit_from_codes",
     "canonical_windows_4bit_from_codes",
     "window_valid_mask",
 ]
@@ -74,15 +76,40 @@ def canonical_windows_from_codes(codes: torch.Tensor, K: int) -> torch.Tensor:
     return _unsigned_minimum(windows_from_codes(codes, K), rc_windows_from_codes(codes, K))
 
 
-def canonical_windows_4bit_from_codes(codes: torch.Tensor, K: int) -> torch.Tensor:
-    """``min(forward, reverse complement)`` over a 4-bit nucleotide code
-    stream (K <= 16): the 4-bit complement of a code is its nibble bit
-    reversal (gap and N are their own complements)."""
+def rc_windows_4bit_from_codes(codes: torch.Tensor, K: int) -> torch.Tensor:
+    """Reverse-complement registers of every K-window of a 4-bit nucleotide
+    code stream (K <= 16), aligned with :func:`windows_from_codes`: the
+    4-bit complement of a code is its nibble bit reversal (gap and N are
+    their own complements)."""
     _check_k(K, 4)
     c = codes.to(torch.int64)
     comp = ((c & 1) << 3) | ((c & 2) << 1) | ((c & 4) >> 1) | ((c & 8) >> 3)
-    rc = _shifted_or(comp, K, lambda j: 4 * j)
+    return _shifted_or(comp, K, lambda j: 4 * j)
+
+
+def canonical_windows_4bit_from_codes(codes: torch.Tensor, K: int) -> torch.Tensor:
+    """``min(forward, reverse complement)`` over a 4-bit nucleotide code
+    stream (K <= 16; unsigned minimum)."""
+    rc = rc_windows_4bit_from_codes(codes, K)
     return _unsigned_minimum(windows_from_codes(codes, K, bps=4), rc)
+
+
+def or_field(words: list, vals: torch.Tensor, lo: int, width: int) -> None:
+    """OR ``width``-bit values into bits ``[lo, lo + width)`` of the
+    registers held in ``words`` (``convert.py``'s words: word 0 most
+    significant, 62 bits each): one word, or two where the field straddles
+    a word boundary."""
+    W = len(words)
+    for q in range(W):  # q: word counted from the least significant
+        base = KEY_BITS_MAX * q
+        if lo + width <= base or lo >= base + KEY_BITS_MAX:
+            continue
+        if lo >= base:
+            s = lo - base
+            # keep the bits that land in this word, so the shift cannot overflow
+            words[W - 1 - q] |= (vals & ((1 << (KEY_BITS_MAX - s)) - 1)) << s
+        else:
+            words[W - 1 - q] |= vals >> (base - lo)
 
 
 def window_valid_mask(good: torch.Tensor, K: int) -> torch.Tensor:

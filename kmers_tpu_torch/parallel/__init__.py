@@ -1,8 +1,8 @@
 """The parallel plane: sharded pipelines over a mesh of ranks.
 
-Counterpart of ``kmers_tpu/parallel/`` (six-frame counting aside): halo
-slabs, per-rank counting on the single-device kernels, and one hash-prefix
-exchange of the local count tables.  A :class:`Mesh` holds its ranks in
+Counterpart of ``kmers_tpu/parallel/``: halo slabs, per-rank counting on
+the single-device kernels (canonical k-mers, minimizers, six-frame amino
+acids), and one hash-prefix exchange of the local count tables.  A :class:`Mesh` holds its ranks in
 one process (any world size, devices may repeat) or one rank a process of
 a ``torch.distributed`` group (NCCL on GPUs, gloo on CPUs); see
 :func:`data_mesh`.  Every function equals its single-device counterpart at
@@ -18,6 +18,7 @@ from .pipeline import (
     sharded_canonical_count,
     sharded_count_step,
 )
+from .sixframe import SixFrameCountConfig, sharded_sixframe_aa_count
 
 __all__ = [
     "Mesh",
@@ -29,4 +30,6 @@ __all__ = [
     "exchange_and_merge_mw",
     "sharded_canonical_count_mw",
     "sharded_minimizer_select",
+    "SixFrameCountConfig",
+    "sharded_sixframe_aa_count",
 ]

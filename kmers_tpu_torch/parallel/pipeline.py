@@ -94,6 +94,12 @@ def destination(hash_keys: torch.Tensor, n_dev: int) -> torch.Tensor:
     return (hh >> shift) % n_dev
 
 
+def _planes(keys: torch.Tensor) -> torch.Tensor:
+    """A table's keys as ``(W, n)`` word planes (``(1, n)`` for one word),
+    an empty table included."""
+    return keys if keys.dim() == 2 else keys[None]
+
+
 def _route(keys: torch.Tensor, counts: torch.Tensor, hash_keys: torch.Tensor, n_dev: int, cap: int):
     """One rank's buckets: ``(n_dev, cap, W + 1)`` int64 rows of words and
     count, bucket ``d`` holding the real rows bound for rank ``d`` (any
@@ -106,7 +112,7 @@ def _route(keys: torch.Tensor, counts: torch.Tensor, hash_keys: torch.Tensor, n_
     same.
     """
     n = counts.shape[0]
-    rows = torch.cat([keys.reshape(-1, n), counts.reshape(1, n)]).T
+    rows = torch.cat([_planes(keys), counts.reshape(1, n)]).T
     real = counts > 0
     dest = torch.where(real, destination(hash_keys, n_dev), n_dev)
     # rows of one destination become contiguous, padding last
@@ -177,8 +183,7 @@ def _slabs(arr: np.ndarray, n_dev: int, shard: int, halo: int, pad_byte: int) ->
 def _real_rows(keys: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """The rows with a count of a table, as ``(m, W + 1)`` int64."""
     keep = counts > 0
-    n = counts.shape[0]
-    return torch.cat([keys.reshape(-1, n)[:, keep], counts[keep].reshape(1, -1)]).T
+    return torch.cat([_planes(keys)[:, keep], counts[keep].reshape(1, -1)]).T
 
 
 def _gather_rows(merged: list, mesh: Mesh) -> torch.Tensor:

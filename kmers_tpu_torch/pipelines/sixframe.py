@@ -1,11 +1,11 @@
 """Six-frame amino-acid k-mer counting on one device.
 
 Counterpart of ``kmers_tpu/parallel/sixframe.py::sharded_sixframe_aa_count``
-over ``data_mesh(1)`` (the sharded form waits for the port's parallel
-plane).  Every window of K codons, over both strands and all three
-frames, whose 3K bases are all certain (A/C/G/T/U, either case) is
-counted; ambiguous and invalid bytes only invalidate the windows that
-touch them, and never raise.
+over ``data_mesh(1)``; the sharded form is ``parallel/sixframe.py``, whose
+ranks count their slabs with :func:`_count_chunk`.  Every window of K
+codons, over both strands and all three frames, whose 3K bases are all
+certain (A/C/G/T/U, either case) is counted; ambiguous and invalid bytes
+only invalidate the windows that touch them, and never raise.
 
 The input is uploaded once and counted in chunks of ``chunk_size`` bytes
 that overlap by 3K - 1 (``_stream.count_stream`` with a span of 3K): a
@@ -61,10 +61,13 @@ class SixFrameCountConfig:
             raise ValueError("chunk_size must be >= 6*K bases")
 
 
-def _count_chunk(chunk: torch.Tensor, config: SixFrameCountConfig, track: bool):
-    """One chunk: ``((uniq, counts), [n_unique, n_valid(, n_counted)])``."""
+def _count_chunk(chunk: torch.Tensor, config, track: bool, bounds=None):
+    """One chunk: ``((uniq, counts), [n_unique, n_valid(, n_counted)])``.
+    ``bounds``: the anchors each strand emits (K4's and K5's), by default
+    every anchor of the chunk."""
     K = config.K
-    bounds = (0, chunk.shape[0], 0, chunk.shape[0])
+    if bounds is None:
+        bounds = (0, chunk.shape[0], 0, chunk.shape[0])
     if K <= K4_MAX:
         keys, n_valid = sixframe_windows(chunk, K, bounds, config.code)
         uniq, counts, n_unique = sort_count(keys, key_bits=8 * K)

@@ -882,6 +882,26 @@ def test_sharded_multiword_and_minimizers_on_cuda_match_cpu(cuda):
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("K,chunk", [(7, 1 << 20), (7, 1 << 16), (12, 1 << 16)])
+def test_sharded_sixframe_on_cuda_matches_cpu(cuda, K, chunk):
+    from kmers_tpu_torch import parallel as par
+
+    seq = _bytes(300_001, 24 + K, invalid=True)
+    cfg = par.SixFrameCountConfig(K=K, chunk_size=chunk)
+    kernel = sixframe_windows if K <= 7 else sixframe_words
+    before = kernel.launches, rle_unit.launches
+    got = par.sharded_sixframe_aa_count(seq, cfg, par.Mesh(["cuda:0"] * 4))
+    # each rank's slab of shard + 6K bytes, in chunks that overlap by 3K - 1
+    shard = -(-seq.size // 4)
+    shard += (-shard) % 3
+    steps = len(range(0, shard + 3 * K + 1, chunk - (3 * K - 1)))
+    assert kernel.launches - before[0] == 4 * steps
+    assert rle_unit.launches - before[1] == 4 * steps
+    want = par.sharded_sixframe_aa_count(seq, cfg, par.data_mesh(4, device="cpu"))
+    assert got[0].dtype == want[0].dtype and got[0].tolist() == want[0].tolist()
+    assert np.array_equal(got[1], want[1]) and got[1].sum() > 0
+
+
 NCCL_SCRIPT = r"""
 import json, socket, sys
 import numpy as np
@@ -897,9 +917,10 @@ try:
     mesh = par.data_mesh()
     k, c = par.sharded_canonical_count(seq, par.ShardedCountConfig(K=31, chunk_size=1 << 17), mesh)
     k47, c47 = par.sharded_canonical_count_mw(seq, K=47, mesh=mesh)
+    aa, caa = par.sharded_sixframe_aa_count(seq, par.SixFrameCountConfig(K=7, chunk_size=1 << 17), mesh)
     print(json.dumps({"devices": [str(d) for d in mesh.devices], "size": mesh.size,
                       "grouped": mesh.group is not None, "k31": [k.tolist(), c.tolist()],
-                      "k47": [[str(int(x)) for x in k47], c47.tolist()]}))
+                      "k47": [[str(int(x)) for x in k47], c47.tolist()], "aa7": [aa.tolist(), caa.tolist()]}))
 finally:
     dist.destroy_process_group()
 """
@@ -926,3 +947,5 @@ def test_sharded_count_over_nccl_world_size_one(cuda, tmp_path):
     assert out["k31"] == [want[0].tolist(), want[1].tolist()]
     want = canonical_count_bytes(seq, CountConfig(K=47), device="cpu")
     assert out["k47"] == [[str(int(x)) for x in want[0]], want[1].tolist()]
+    want = sixframe_aa_count(seq, SixFrameCountConfig(K=7), device="cpu")
+    assert out["aa7"] == [want[0].tolist(), want[1].tolist()]

@@ -6,8 +6,8 @@ minimizers, six-frame counting (K = 7 and K = 15), a ``StreamingCounter``,
 parallel plane (sharded counting at K = 7 and K = 40 and sharded minimizers
 over three CPU ranks), the native
 FASTA scanner, a count-table checkpoint round trip, ``profile_step`` and the
-CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``,
-``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
+CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``, the
+sharded ``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
 ``sys.modules``; and no source of the port or of ``chip_smoke.py`` has such
 an import."""
 
@@ -60,6 +60,14 @@ mesh = par.data_mesh(3, device="cpu")
 pk, pc = par.sharded_canonical_count({DATA!r}, par.ShardedCountConfig(K=7, chunk_size=100), mesh)
 pk40, pc40 = par.sharded_canonical_count_mw({DATA_40!r}, K=40, mesh=mesh)
 pmins, _ = par.sharded_minimizer_select({DATA!r}, K=7, W=4, mesh=mesh, skip_ambiguous=True)
+paa7, _ = par.sharded_sixframe_aa_count({DATA_AA!r}, par.SixFrameCountConfig(K=7, chunk_size=60), mesh)
+paa15, _ = par.sharded_sixframe_aa_count({DATA_AA!r}, par.SixFrameCountConfig(K=15), mesh)
+from kmers_tpu_torch.ops import encode_table, fx_hash_words, gc_count_u64, windows_mw
+codes, valid = encode_table(torch.frombuffer(bytearray({DATA!r}), dtype=torch.uint8), kmers_tpu_torch.DNAAlphabet4)
+regs = kmers_tpu_torch.rand_kmers_device(torch.Generator().manual_seed(1), kmers_tpu_torch.AminoAcidAlphabet(), 9, 8,
+                                         device="cpu")
+extras = [int(valid.sum()), int(gc_count_u64(windows_mw(codes[:40] & 3, 20)[0]).sum() >= 0),
+          int(fx_hash_words([regs[0]]).shape[0]), regs.shape[0]]
 sc = kmers_tpu_torch.StreamingCounter(kmers_tpu_torch.CountConfig(K=7, chunk_size=100), device="cpu")
 sc.update({DATA!r})
 streamed, streamed_counts = sc.finalize()
@@ -87,6 +95,8 @@ print(json.dumps({{
     "sharded": pk.tolist() == kmers.tolist() and pc.tolist() == counts.tolist(),
     "sharded40": [int(x) for x in pk40] == [int(x) for x in kmers40] and pc40.tolist() == counts40.tolist(),
     "sharded_minimizers": pmins.tolist() == mins.tolist(),
+    "sharded_aa": paa7.tolist() == aa7.tolist() and [int(x) for x in paa15] == [int(x) for x in aa15],
+    "extras": extras,
     "aa7": int(aa_counts7.sum()),
     "aa15": int(aa_counts15.sum()),
     "streamed": int(streamed_counts.sum()),
@@ -123,7 +133,9 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert verified["ok"] and verified["inputs_checked"] == 1
     assert json.loads(lines[-1]) == {
         "total": TOTAL, "total40": 4 * 30 - 40 + 1, "sketch": 5, "extracted": TOTAL,
-        "minimizers": True, "sharded": True, "sharded40": True, "sharded_minimizers": True, "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
+        "minimizers": True, "sharded": True, "sharded40": True, "sharded_minimizers": True,
+        "sharded_aa": True, "extras": [len(DATA), 1, 8, 2],
+        "aa7": 2 * (200 - 21 + 1), "aa15": 2 * (200 - 45 + 1),
         "streamed": TOTAL, "merged": 2 * TOTAL,
         "bench": ["metric", "unit", "value", "vs_baseline"], "sorted": True, "native": True,
         "checkpoint": True, "profiled": 3, "jax": False, "kmers_tpu": [],
@@ -143,7 +155,8 @@ def test_sources_hold_the_new_modules():
         "kmers_tpu_torch/utils/profiling.py", "kmers_tpu_torch/ops/kernels/sort_kernel.py",
         "kmers_tpu_torch/parallel/__init__.py", "kmers_tpu_torch/parallel/mesh.py",
         "kmers_tpu_torch/parallel/pipeline.py", "kmers_tpu_torch/parallel/minimizers.py",
-        "kmers_tpu_torch/parallel/multiword.py",
+        "kmers_tpu_torch/parallel/multiword.py", "kmers_tpu_torch/parallel/sixframe.py",
+        "kmers_tpu_torch/alphabets.py", "kmers_tpu_torch/random.py", "kmers_tpu_torch/ops/stats.py",
     } <= names
 
 

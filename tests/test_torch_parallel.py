@@ -484,6 +484,17 @@ def test_world_sizes_equal_one_device(n):
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("K", [21, 50])
+def test_a_rank_with_no_window(K):
+    # rank 1's slab is all N, so on the streamed route its folded table is empty
+    seq = np.concatenate([_dna(1000, 60), np.full(1000, ord("N"), np.uint8), _dna(2000, 61)])
+    one = tcc.canonical_count_bytes(seq, tcc.CountConfig(K=K), device="cpu")
+    if K <= 31:
+        _equal(tpar.sharded_canonical_count(seq, tpar.ShardedCountConfig(K=K, chunk_size=211), _port_mesh(4)), one)
+    else:
+        _equal_mw(tpar.sharded_canonical_count_mw(seq, K=K, mesh=_port_mesh(4)), one)
+
+
 def test_explicit_mesh_with_repeated_devices():
     seq = _dna(2000, 30)
     mesh = tpar.Mesh(["cpu"] * 4)

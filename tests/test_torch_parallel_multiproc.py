@@ -1,8 +1,8 @@
 """The port's parallel plane in process-group mode: two CPU processes joined
 by ``torch.distributed`` over gloo, one rank each, both holding the whole
 input.  Each process must return the whole result, equal to the port on one
-device: K = 31 on both routes, K = 47, minimizers, and a bucket overflow
-that raises on both ranks."""
+device: K = 31 on both routes, K = 47, minimizers, six-frame counting at
+K = 7 and K = 12, and a bucket overflow that raises on both ranks."""
 
 import json
 import os
@@ -14,7 +14,13 @@ from pathlib import Path
 
 import numpy as np
 
-from kmers_tpu_torch import CountConfig, canonical_count_bytes, minimizer_select
+from kmers_tpu_torch import (
+    CountConfig,
+    SixFrameCountConfig,
+    canonical_count_bytes,
+    minimizer_select,
+    sixframe_aa_count,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 2
@@ -40,6 +46,9 @@ try:
     out["k47"] = [[str(int(x)) for x in k], c.tolist()]
     v, p = par.sharded_minimizer_select(clean, 15, 10, mesh)
     out["minimizers"] = [v.tolist(), p.tolist()]
+    for k, chunk in ((7, 1000), (12, 1 << 20)):
+        aa, c = par.sharded_sixframe_aa_count(seq, par.SixFrameCountConfig(K=k, chunk_size=chunk), mesh)
+        out[f"aa{k}"] = [[str(int(x)) for x in aa], c.tolist()]
     try:
         par.sharded_canonical_count(seq, par.ShardedCountConfig(K=31, bucket_factor=0.01), mesh)
         out["overflow"] = None
@@ -88,11 +97,14 @@ def test_two_gloo_processes_each_return_the_whole_result(tmp_path):
     clean = seq.copy()
     clean[clean == ord("N")] = ord("A")
     mins = minimizer_select(clean, 15, 10, device="cpu")
+    aa = {k: sixframe_aa_count(seq, SixFrameCountConfig(K=k), device="cpu") for k in (7, 12)}
     for r, out in enumerate(outs):
         assert out["rank"] == [r] and out["size"] == WORLD
         for name in ("single", "streamed"):
             assert out[name] == [one[0].tolist(), one[1].tolist()], name
         assert out["k47"] == [[str(int(x)) for x in k47[0]], k47[1].tolist()]
         assert out["minimizers"] == [mins[0].tolist(), mins[1].tolist()]
+        for k, (kmers, counts) in aa.items():
+            assert out[f"aa{k}"] == [[str(int(x)) for x in kmers], counts.tolist()], k
         assert out["overflow"] == "hash-prefix bucket overflow; increase bucket_factor"
-    assert len(one[0]) > 1000 and len(mins[0]) > 500
+    assert len(one[0]) > 1000 and len(mins[0]) > 500 and len(aa[7][0]) > 1000 and len(aa[12][0]) > 1000
