@@ -83,7 +83,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
    every rank's k-mers routed to it and the launches of K4 or K5, K2, K9
    and K10 equal to the slab and chunk geometry, with the wall, the
    amino-acid windows/s, ``cap`` and the exchange's device time; the
-   CLI's ``sixframe`` on a 1 Mb FASTA equal to one device;
+   CLI's ``sixframe`` on a 1 Mb FASTA equal to one device; then the
+   scalar oracle (``phase_scalar_oracle``): on the chromosome's first
+   200 kb (an N block, IUPAC codes, soft-masked stretches) the device path
+   against the port's own scalar plane — counting at K = 31 in chunks of
+   2^15 (K1, K2, K9, K10) through ``counts_to_dict`` as ``Kmer`` keys and
+   at K = 47 (K3), ``extract_kmers`` at K = 31 (K6) and 32 (K8b), and
+   ``spaced_kmers`` (K6), each against ``UnambiguousDNAMers`` or
+   ``SpacedDNAMers``; ``minhash_sketch`` (K1's hash mode) against
+   ``fx_hash``; six-frame counting at K = 7 (K4) and 12 (K5) on 50 kb
+   against ``translate`` and ``FwAAMers`` — with each check's launches,
+   logged by the phase and left out of the kernels line's counts;
 8. streaming, tables, bench: ``count_fastx_stream`` over a FASTQ of
    400,000 reads of 150 bp sampled from the chromosome (half of them
    reverse-complemented) in batches of 16 MiB, equal to the numpy
@@ -2589,6 +2599,177 @@ def phase_parallel_sixframe(chrom: np.ndarray, smi: str, table_7) -> collections
     return total
 
 
+#: the scalar oracle's window: the chromosome's first 200 kb, which holds
+#: the 2-kb N block, the 5-kb soft-masked stretch and IUPAC codes; its
+#: 50 kb from 30,000 hold one of each too, for six-frame counting
+SCALAR_WINDOW = 200_000
+SCALAR_SIXFRAME = slice(30_000, 80_000)
+
+
+def _certain_runs(seq: np.ndarray):
+    """(start, stop) of the maximal runs of ACGTacgt in ``seq``."""
+    good = np.isin(seq, np.frombuffer(b"ACGTacgt", np.uint8)).astype(np.int8)
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], good, [0]])))
+    return list(zip(edges[::2].tolist(), edges[1::2].tolist()))
+
+
+def scalar_sixframe_counter(text: str, k: int) -> collections.Counter:
+    """{register: count} of the six-frame amino-acid k-mers by the scalar
+    plane alone: each run of certain bases and its reverse complement as a
+    2-bit ``Seq``, its three frames translated by ``Seq.translate`` and
+    read by ``FwAAMers``."""
+    import kmers_tpu_torch as kt
+
+    out = collections.Counter()
+    seq = np.frombuffer(text.encode(), np.uint8)
+    for a, b in _certain_runs(seq):
+        fw = kt.Seq(kt.DNAAlphabet2(), text[a:b])
+        for strand in (fw, kt.reverse_complement(fw)):
+            for f in range(3):
+                n = (len(strand) - f) // 3
+                if n >= k:
+                    aa = kt.translate(strand[f : f + 3 * n])
+                    out.update(x.value for x in kt.FwAAMers(k, aa))
+    return out
+
+
+def phase_scalar_oracle(chrom: np.ndarray, smi: str) -> None:
+    """The device path against the port's own scalar plane on a 200-kb
+    window of the chromosome (an N block, IUPAC codes, soft-masked
+    stretches): canonical counting at K = 31 in chunks of 2^15 (so the
+    table folds) through ``counts_to_dict`` against a Counter of
+    ``UnambiguousDNAMers``' canonical ``Kmer``s, the same at K = 47 against
+    their Python ints, ``extract_kmers`` at K = 31 and 32 against the
+    iterator's values and positions, ``spaced_kmers`` against
+    ``SpacedDNAMers`` on a stretch of certain bases, ``minhash_sketch``
+    (K = 21, s = 1000) against the 1000 smallest distinct ``fx_hash`` of the
+    canonical k-mers, and ``sixframe_aa_count`` at K = 7 and 12 on 50 kb
+    of the window (``SCALAR_SIXFRAME``) against ``FwAAMers`` over the
+    scalar ``translate`` of the six frames.  Each check resets the launch
+    counts of its kernels just before its device call, reads them just
+    after and requires its kernels among them; the phase logs its own
+    counts, which stay out of the kernels line's sum."""
+    import kmers_tpu_torch as kt
+    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_k32
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
+    from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
+    from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows, sixframe_words
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_hashes, canonical_windows
+
+    wrappers = {"canonical_windows": canonical_windows, "canonical_hashes": canonical_hashes,
+                "rle_unit": rle_unit, "canonical_words": canonical_words,
+                "windows_general": windows_general, "windows_k32": windows_k32,
+                "merge_tables": merge_tables, "compact_table": compact_table,
+                "sixframe_windows": sixframe_windows, "sixframe_words": sixframe_words}
+    launches = collections.Counter()
+
+    def driven(tag: str, names, fn):
+        for name in wrappers:
+            wrappers[name].launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        run = {name: w.launches for name, w in wrappers.items() if w.launches}
+        launches.update(run)
+        log(f"[scalar {tag}] device call {wall:.4f} s, launches {run}")
+        for name in names:
+            require(run.get(name, 0) > 0, f"scalar oracle {tag}: {name} was not launched")
+        return out
+
+    def oracle(tag: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[scalar {tag}] scalar oracle in {time.perf_counter() - t0:.2f} s")
+        return out
+
+    t_phase = time.perf_counter()
+    win = chrom[:SCALAR_WINDOW]
+    text = win.tobytes().decode()
+    kinds = {"N": int((win == ord("N")).sum()), "IUPAC": int(np.isin(win, np.frombuffer(b"RYKMSWryn", np.uint8)).sum()),
+             "soft-masked": int((win >= ord("a")).sum())}
+    log(f"[scalar] window of {win.size} bases: {kinds}")
+    require(all(kinds.values()), f"the window lacks a kind of base: {kinds}")
+
+    # canonical counting, K = 31, folded tables (K1, K2, K9, K10), as Kmer keys
+    kmers, counts = driven("count K=31", ["canonical_windows", "rle_unit", "merge_tables", "compact_table"],
+                           lambda: kt.canonical_count_bytes(win, kt.CountConfig(K=31, chunk_size=1 << 15),
+                                                            device="cuda"))
+    want = oracle("count K=31", lambda: collections.Counter(
+        k.canonical() for k, _ in kt.UnambiguousDNAMers(31, text)))
+    got = kt.counts_to_dict(kmers, counts, 31)
+    require(got == dict(want), "canonical counts at K = 31 differ from the scalar oracle")
+    require(all(type(k.alphabet) is kt.DNAAlphabet2 for k in got), "counts_to_dict keys are not DNA Kmers")
+    log(f"[scalar count K=31] equal to Counter(k.canonical() for k in UnambiguousDNAMers): "
+        f"{len(got)} distinct Kmer keys, {sum(got.values())} counted")
+
+    # K = 47, multi-word registers (K3), against the scalar k-mers' Python ints
+    kmers, counts = driven("count K=47", ["canonical_words", "rle_unit", "compact_table"],
+                           lambda: kt.canonical_count_bytes(win, kt.CountConfig(K=47, chunk_size=1 << 15),
+                                                            device="cuda"))
+    want = oracle("count K=47", lambda: collections.Counter(
+        k.canonical().value for k, _ in kt.UnambiguousDNAMers(47, text)))
+    require(dict(zip(kmers.tolist(), counts.tolist())) == dict(want),
+            "canonical counts at K = 47 differ from the scalar oracle")
+    log(f"[scalar count K=47] equal to the scalar k-mers' ints: {len(want)} distinct")
+
+    # extraction at K = 31 (K6) and K = 32 (K8b): values and positions
+    for k, name in ((31, "windows_general"), (32, "windows_k32")):
+        vals, pos = driven(f"extract K={k}", [name],
+                           lambda: kt.extract_kmers(win, K=k, device="cuda"))
+        want = oracle(f"extract K={k}", lambda: [(x.value, i) for x, i in kt.UnambiguousDNAMers(k, text)])
+        require(list(zip(vals.tolist(), pos.tolist())) == want,
+                f"extract_kmers K={k} differs from UnambiguousDNAMers")
+        log(f"[scalar extract K={k}] values and positions equal to UnambiguousDNAMers ({len(want)} windows)")
+
+    # spaced k-mers on the longest stretch of certain bases (K6)
+    a, b = max(_certain_runs(win), key=lambda r: r[1] - r[0])
+    stretch = text[a : min(b, a + 50_000)]
+    for J in (7, 40):
+        vals = driven(f"spaced K=31 J={J}", ["windows_general"],
+                      lambda: kt.spaced_kmers(stretch, K=31, J=J, device="cuda"))
+        want = oracle(f"spaced K=31 J={J}", lambda: [x.value for x in kt.SpacedDNAMers(31, J, stretch)])
+        require(vals.tolist() == want, f"spaced_kmers J={J} differs from SpacedDNAMers")
+        log(f"[scalar spaced K=31 J={J}] equal to SpacedDNAMers on {len(stretch)} certain bases "
+            f"at {a} ({len(want)} windows)")
+    # the two treat an ambiguous code outside every sampled window apart:
+    # the iterator reads every base when J < K, the device path only the windows
+    probe = stretch[: 31 + 7 * 10 + 3] + "R"
+    outcomes = []
+    for fn in (lambda: kt.spaced_kmers(probe, K=31, J=7, device="cuda"),
+               lambda: list(kt.SpacedDNAMers(31, 7, probe))):
+        try:
+            outcomes.append(f"{len(fn())} windows")
+        except kt.EncodeError as e:
+            outcomes.append(f"EncodeError({e})")
+    log(f"[scalar spaced] finding: an IUPAC code after the last sampled window (J = 7 < K = 31): "
+        f"spaced_kmers gives {outcomes[0]}, SpacedDNAMers {outcomes[1]}")
+
+    # minhash, K = 21, s = 1000 (K1's hash mode): unsigned FxHashes, the
+    # port's hash keys (convert.py: the sign bit flipped) turned back
+    sketch = driven("minhash K=21", ["canonical_hashes"],
+                    lambda: kt.minhash_sketch(win, K=21, s=1000, device="cuda"))
+    want = oracle("minhash K=21", lambda: sorted(
+        {kt.fx_hash(k.canonical()) for k, _ in kt.UnambiguousDNAMers(21, text)})[:1000])
+    require(sketch.dtype == np.uint64 and sketch.tolist() == want,
+            "minhash_sketch differs from the scalar fx_hash sketch")
+    log(f"[scalar minhash K=21] equal to the 1000 smallest distinct fx_hash(k.canonical())")
+
+    # six-frame counting (K4 at K = 7, K5 at K = 12) on 50 kb with an N
+    # block, IUPAC codes and a soft-masked stretch
+    head = text[SCALAR_SIXFRAME]
+    for k, name in ((7, "sixframe_windows"), (12, "sixframe_words")):
+        kmers, counts = driven(f"sixframe K={k}", [name, "rle_unit"],
+                               lambda: kt.sixframe_aa_count(head, kt.SixFrameCountConfig(K=k), device="cuda"))
+        want = oracle(f"sixframe K={k}", lambda: scalar_sixframe_counter(head, k))
+        require(dict(zip(kmers.tolist(), counts.tolist())) == dict(want),
+                f"six-frame counts at K = {k} differ from the scalar translate and FwAAMers")
+        log(f"[scalar sixframe K={k}] equal to FwAAMers over the scalar translate of six frames "
+            f"({len(want)} distinct, {sum(want.values())} counted)")
+
+    log(f"[scalar] phase in {time.perf_counter() - t_phase:.1f} s, launches {dict(launches)} ({smi})")
+
+
 def main() -> int:
     import torch
 
@@ -2618,6 +2799,7 @@ def main() -> int:
     launches_parallel += phase_parallel_sixframe(chrom, smi, table_7)
     del table_7
     log(f"[parallel sixframe] sharded six-frame phase in {time.perf_counter() - t0:.1f} s")
+    phase_scalar_oracle(chrom, smi)
     t0 = time.perf_counter()
     launches_stream = phase_stream(chrom, smi)
     log(f"[stream] streaming, tables and bench phase in {time.perf_counter() - t0:.1f} s")
@@ -2631,7 +2813,8 @@ def main() -> int:
     require(not [m for m in sys.modules if m.split(".")[0] == "kmers_tpu"],
             "the JAX package was imported")
 
-    # launches: each kernel's count over the paths that run it
+    # launches: each kernel's count over the paths that run it (the scalar
+    # oracle's checks log their own)
     launches = (collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
                 + launches_sixframe + collections.Counter(launches_stream)
                 + collections.Counter(launches_sort) + collections.Counter(launches_checkpoint)

@@ -2,11 +2,22 @@
 
 A port of the JAX package ``kmers_tpu``, which stays the reference: module
 paths mirror it, so ``kmers_tpu_torch/X.py`` is the counterpart of
-``kmers_tpu/X.py``.  The port imports ``torch`` and never ``jax``, and
-nothing of the ``kmers_tpu`` package either, not even its jax-free
-modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
-``io``).
+``kmers_tpu/X.py``, and the top level exports every name the reference's
+does.  The port imports ``torch`` and never ``jax``, and nothing of the
+``kmers_tpu`` package either, not even its jax-free modules: it keeps its
+own copies of what it needs (the scalar plane, ``io``).
 
+- top level: the scalar API plane, host-side Python and numpy copied whole
+  from the reference — symbols, alphabets, the :class:`Kmer` value type of
+  every alphabet (``Mer``, ``KmerType``, ``DNAKmer`` and the other
+  factories, ``fx_hash``, ``derive_type``, ``derive_words``, ``n_words``,
+  ``mer``), ``Seq``, construction (``recoding_scheme``, ``unsafe_extract``,
+  ``unsafe_shift_from``), the iterators (``FwKmers``, ``CanonicalKmers``,
+  ``UnambiguousKmers``, ``SpacedKmers`` and their shorthands,
+  ``each_codon``), the function API (``translate`` to ``from_integer``),
+  the NCBI genetic codes, reverse translation and random k-mers.  Bit-exact
+  with the reference; the oracle of the device plane (``chip_smoke.py``
+  holds the kernels' paths against it on the card).
 - ``convert``: the register convention (``ceil(K / 31)`` int64 words of 62
   bits per register, ``INT64_MAX`` sentinel, int64 counts), the hash-key
   convention (FxHash with the sign bit flipped, so signed order is unsigned
@@ -29,19 +40,19 @@ modules: it keeps its own copies of what it needs (``symbols``, ``kmer``,
   extraction (``extract_kmers``, ``spaced_kmers``, ``minimizer_select``,
   ``syncmer_select``); six-frame amino-acid k-mer counting
   (``sixframe_aa_count``, ``SixFrameCountConfig``).
-- ``genetic_codes``, ``revtrans``: the NCBI genetic codes and their
-  codon-set masks, for translation (``ops.translate_ops``) and reverse
-  translation (``ops.revtrans_ops``).
-- ``symbols``, ``alphabets``, ``random``, ``kmer``, ``io``: ``EncodeError``
-  and the ``DNA``, ``RNA`` and ``AminoAcid`` symbols, the alphabets and
-  their ASCII tables, random K-mer registers made on the device
-  (``rand_kmers_device``), a 2-bit DNA ``Kmer``, and a FASTA/FASTQ reader and batch streamer (a native C++ scanner built
-  by g++ at first use, pure Python where it cannot be built).
+- ``genetic_codes``, ``revtrans``: besides the scalar API, the tables the
+  device ops read: ``sixframe_tbl16`` for translation
+  (``ops.translate_ops``, the six-frame kernels) and ``codon_set_masks``
+  for reverse translation (``ops.revtrans_ops``).
+- ``random``: besides the host functions, random K-mer registers made on
+  the device (``rand_kmers_device``).
+- ``io``: a FASTA/FASTQ reader and batch streamer (a native C++ scanner
+  built by g++ at first use, pure Python where it cannot be built).
 - ``utils``: checked mode, metrics, the level stack, the drain queue,
   count-table checkpoints and profiling hooks.
 
-Functions take an explicit ``device``: on ``"cuda"`` the kernels run, on
-``"cpu"`` their plain torch versions.
+The device plane's functions take an explicit ``device``: on ``"cuda"``
+the kernels run, on ``"cpu"`` their plain torch versions.
 """
 
 from .alphabets import (
@@ -57,8 +68,70 @@ from .alphabets import (
     RNAAlphabet2,
     RNAAlphabet4,
 )
+from .construction import (
+    AsciiEncode,
+    Copyable,
+    FourToTwo,
+    GenericRecoding,
+    RecodingScheme,
+    TwoToFour,
+    recoding_scheme,
+    shift_encoding,
+    unsafe_extract,
+    unsafe_shift_from,
+)
 from .convert import SENTINEL
-from .genetic_codes import GeneticCode, ncbi_trans_table, standard_genetic_code
+from .functions import (
+    as_integer,
+    canonical,
+    complement,
+    delete,
+    from_integer,
+    iscanonical,
+    pop,
+    pop_first,
+    push,
+    push_first,
+    reverse,
+    reverse_complement,
+    shift,
+    shift_first,
+    translate,
+)
+from .genetic_codes import GeneticCode, TranslationError, ncbi_trans_table, standard_genetic_code
+from .iterators import (
+    CanonicalDNAMers,
+    CanonicalKmers,
+    CanonicalRNAMers,
+    FwAAMers,
+    FwDNAMers,
+    FwKmers,
+    FwRNAMers,
+    FwRvIterator,
+    SpacedAAMers,
+    SpacedDNAMers,
+    SpacedKmers,
+    SpacedRNAMers,
+    UnambiguousDNAMers,
+    UnambiguousKmers,
+    UnambiguousRNAMers,
+    each_codon,
+)
+from .kmer import (
+    AAKmer,
+    DNACodon,
+    DNAKmer,
+    Kmer,
+    KmerType,
+    Mer,
+    RNACodon,
+    RNAKmer,
+    derive_type,
+    derive_words,
+    fx_hash,
+    mer,
+    n_words,
+)
 from .pipelines import (
     CountConfig,
     StreamingCounter,
@@ -87,8 +160,18 @@ from .pipelines import (
     subtract_counts,
     syncmer_select,
 )
-from .random import rand_kmers_device
+from .random import rand_from_kmer, rand_kmer, rand_kmers, rand_kmers_device, rand_kmers_mw, rand_symbol
+from .revtrans import (
+    CodonSet,
+    ReverseGeneticCode,
+    rev_standard_genetic_code,
+    reverse_translate,
+    reverse_translate_into,
+)
+from .seq import BioSequence, Seq
 from .symbols import DNA, RNA, AminoAcid, EncodeError, NucleicAcid
+
+__version__ = "0.1.0"
 
 __all__ = [
     "DNA",
@@ -107,6 +190,72 @@ __all__ = [
     "AminoAcidAlphabet",
     "CharAlphabet",
     "ASCII_SKIPPING_LUT",
+    "Seq",
+    "BioSequence",
+    "Kmer",
+    "Mer",
+    "KmerType",
+    "DNAKmer",
+    "RNAKmer",
+    "AAKmer",
+    "DNACodon",
+    "RNACodon",
+    "mer",
+    "fx_hash",
+    "derive_type",
+    "derive_words",
+    "n_words",
+    "RecodingScheme",
+    "Copyable",
+    "TwoToFour",
+    "FourToTwo",
+    "AsciiEncode",
+    "GenericRecoding",
+    "recoding_scheme",
+    "unsafe_extract",
+    "unsafe_shift_from",
+    "shift_encoding",
+    "CodonSet",
+    "ReverseGeneticCode",
+    "rev_standard_genetic_code",
+    "reverse_translate",
+    "reverse_translate_into",
+    "translate",
+    "complement",
+    "reverse",
+    "reverse_complement",
+    "canonical",
+    "iscanonical",
+    "push",
+    "push_first",
+    "shift",
+    "shift_first",
+    "pop",
+    "pop_first",
+    "delete",
+    "as_integer",
+    "from_integer",
+    "FwKmers",
+    "FwDNAMers",
+    "FwRNAMers",
+    "FwAAMers",
+    "FwRvIterator",
+    "CanonicalKmers",
+    "CanonicalDNAMers",
+    "CanonicalRNAMers",
+    "UnambiguousKmers",
+    "UnambiguousDNAMers",
+    "UnambiguousRNAMers",
+    "SpacedKmers",
+    "SpacedDNAMers",
+    "SpacedRNAMers",
+    "SpacedAAMers",
+    "each_codon",
+    "rand_symbol",
+    "rand_from_kmer",
+    "rand_kmer",
+    "rand_kmers",
+    "rand_kmers_mw",
     "rand_kmers_device",
     "SENTINEL",
     "CountConfig",
@@ -138,4 +287,5 @@ __all__ = [
     "GeneticCode",
     "standard_genetic_code",
     "ncbi_trans_table",
+    "TranslationError",
 ]

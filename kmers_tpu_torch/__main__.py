@@ -31,6 +31,7 @@ _DEVICE_HELP = "torch device: cuda runs the kernels, cpu their plain versions"
 
 
 def cmd_count(args):
+    from .alphabets import DNAAlphabet2
     from .io import read_fastx
     from .kmer import Kmer
     from .pipelines.canonical_count import CountConfig, canonical_count_records
@@ -63,7 +64,7 @@ def cmd_count(args):
         return
     top = np.argsort(counts)[::-1][: args.top]
     for i in top:
-        k = Kmer.unsafe(args.k, int(kmers[i]))
+        k = Kmer.unsafe(DNAAlphabet2(), args.k, int(kmers[i]))
         print(f"{k}\t{counts[i]}")
     print(
         json.dumps({"distinct": int(kmers.size), "total": int(counts.sum())}),

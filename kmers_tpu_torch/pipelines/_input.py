@@ -7,8 +7,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: the alphabet named by the pipelines' ``EncodeError``, as in the reference
-ALPHABET = "DNAAlphabet2"
+from ..alphabets import DNAAlphabet2
+
+#: the alphabet the pipelines' ``EncodeError`` carries, as in the reference
+ALPHABET = DNAAlphabet2()
 
 
 def as_byte_array(data) -> np.ndarray:

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..alphabets import DNAAlphabet2
 from ..convert import SENTINEL, words_to_ints
 from ..kmer import Kmer
 from ..ops.count import merge_compact_tables, sort_count
@@ -298,5 +299,7 @@ def counts_lookup(kmers: np.ndarray, counts: np.ndarray, queries) -> np.ndarray:
 
 
 def counts_to_dict(kmers: np.ndarray, counts: np.ndarray, K: int):
-    """Materialize a (kmers, counts) table as {Kmer: int}."""
-    return {Kmer.unsafe(K, int(k)): int(c) for k, c in zip(kmers, counts)}
+    """Materialize a (kmers, counts) table as {Kmer: int}, each key a
+    2-bit DNA :class:`~kmers_tpu_torch.kmer.Kmer`."""
+    A = DNAAlphabet2()
+    return {Kmer.unsafe(A, K, int(k)): int(c) for k, c in zip(kmers, counts)}

@@ -3,7 +3,8 @@ the CPU for 1 <= K <= 100, bit-exact against the JAX package's
 ``canonical_count_bytes``, ``canonical_count_records`` and
 ``python -m kmers_tpu count``, with the same error contract, metrics and
 checked mode.  Each package raises its own ``EncodeError`` and builds its
-own ``Kmer``s; those are compared by class, text and count."""
+own ``Kmer``s; those are compared by message, alphabet, text, ``repr``,
+hash and count."""
 
 import collections
 import importlib
@@ -12,12 +13,14 @@ import json
 import numpy as np
 import pytest
 
+import kmers_tpu_torch as kt
 from kmers_tpu import UnambiguousDNAMers
 from kmers_tpu.__main__ import main as jax_main
 from kmers_tpu.alphabets import EncodeError as JaxEncodeError
 from kmers_tpu.utils import Metrics as JaxMetrics
 from kmers_tpu.utils import checked as jax_checked
 from kmers_tpu_torch.__main__ import main as port_main
+from kmers_tpu_torch.alphabets import DNAAlphabet2
 from kmers_tpu_torch.kmer import Kmer
 from kmers_tpu_torch.symbols import EncodeError
 from kmers_tpu_torch.utils import Metrics, checked, checked_mode
@@ -44,11 +47,15 @@ def _jax(data, **kw):
 
 
 def _raises_each_own(data, **kw):
-    """Both packages raise their own EncodeError on ``data``."""
-    with pytest.raises(EncodeError):
+    """Both packages raise their own EncodeError on ``data``, with the same
+    message and an alphabet of the same class."""
+    with pytest.raises(EncodeError) as got:
         _port(data, **kw)
-    with pytest.raises(JaxEncodeError):
+    with pytest.raises(JaxEncodeError) as want:
         _jax(data, **kw)
+    assert str(got.value) == str(want.value)
+    assert type(got.value.alphabet) is DNAAlphabet2
+    assert type(got.value.alphabet).__name__ == type(want.value.alphabet).__name__
 
 
 def _equal(a, b):
@@ -175,11 +182,15 @@ def test_matches_scalar_plane_counter():
 
 
 def _same_dict(got, want):
-    """{Kmer: count} of the port and of the JAX package: the same text and
-    counts, each key of its own package's class."""
-    assert all(type(k) is Kmer for k in got)
+    """{Kmer: count} of the port and of the JAX package: the same text,
+    ``repr``, hash, alphabet and counts, each key of its own package's
+    class."""
+    assert all(type(k) is Kmer and type(k.alphabet) is DNAAlphabet2 for k in got)
+    assert all(type(k.alphabet).__name__ == "DNAAlphabet2" for k in want)
     assert {str(k): c for k, c in got.items()} == {str(k): c for k, c in want.items()}
     assert {k.value: c for k, c in got.items()} == {k.value: c for k, c in want.items()}
+    assert sorted(map(repr, got)) == sorted(map(repr, want))
+    assert sorted(map(hash, got)) == sorted(map(hash, want))
 
 
 def test_lookup_and_dict_match_jax():
@@ -190,6 +201,27 @@ def test_lookup_and_dict_match_jax():
         tcc.counts_lookup(kmers, counts, queries), jcc.counts_lookup(kmers, counts, queries)
     )
     _same_dict(tcc.counts_to_dict(kmers, counts, 9), jcc.counts_to_dict(kmers, counts, 9))
+
+
+@pytest.mark.parametrize("K", [9, 47])
+def test_dict_keys_are_scalar_kmers(K):
+    """The table's keys are the scalar plane's ``Kmer``s: a ``kt.DNAKmer``
+    of a window, made canonical, finds its count, and ``counts_lookup``
+    with ``kt.DNAKmer`` queries equals the JAX package's with its own."""
+    data = _seq(600, 20 + K).tobytes().decode()
+    kmers, counts = _port(data, K=K)
+    table = tcc.counts_to_dict(kmers, counts, K)
+    windows = [data[i:i + K] for i in range(len(data) - K + 1)]
+    windows = [w.upper() for w in windows if set(w.upper()) <= set("ACGT")][:25]
+    assert windows
+    for w in windows:
+        k = kt.DNAKmer(w)
+        assert table[k.canonical()] == table[k.reverse_complement().canonical()] >= 1
+    from kmers_tpu import DNAKmer as JaxDNAKmer
+
+    got = tcc.counts_lookup(kmers, counts, [kt.DNAKmer(w) for w in windows])
+    want = jcc.counts_lookup(kmers, counts, [JaxDNAKmer(w) for w in windows])
+    assert np.array_equal(got, want) and (got >= 1).all()
 
 
 def test_cli_matches_jax_cli(tmp_path, capsys):
@@ -310,7 +342,7 @@ def test_multiword_lookup_and_dict_match_jax():
     assert np.array_equal(
         tcc.counts_lookup(kmers, counts, queries), jcc.counts_lookup(kmers, counts, queries)
     )
-    rc = Kmer.unsafe(K, int(kmers[3])).reverse_complement()
+    rc = Kmer.unsafe(DNAAlphabet2(), K, int(kmers[3])).reverse_complement()
     assert tcc.counts_lookup(kmers, counts, rc).tolist() == [int(counts[3])]
     _same_dict(tcc.counts_to_dict(kmers, counts, K), jcc.counts_to_dict(kmers, counts, K))
 

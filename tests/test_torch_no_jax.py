@@ -4,8 +4,9 @@ counting path (K = 7 and K = 40), minhash sketching, extraction,
 minimizers, six-frame counting (K = 7 and K = 15), a ``StreamingCounter``,
 ``merge_counts_device``, ``bench`` at a small L, the bitonic sort, the
 parallel plane (sharded counting at K = 7 and K = 40 and sharded minimizers
-over three CPU ranks), the native
-FASTA scanner, a count-table checkpoint round trip, ``profile_step`` and the
+over three CPU ranks), the scalar plane (``DNAKmer``,
+``CanonicalDNAMers``, ``reverse_translate``, ``rand_kmer``,
+``SpacedAAMers``), the native FASTA scanner, a count-table checkpoint round trip, ``profile_step`` and the
 CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``, the
 sharded ``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
 ``sys.modules``; and no source of the port or of ``chip_smoke.py`` has such
@@ -79,6 +80,14 @@ save_count_table(sys.argv[2] + "/t40", kmers40, counts40, K=40)
 back40, back_counts40, K40 = load_count_table(sys.argv[2] + "/t40")
 top = profile_step(lambda: kmers_tpu_torch.canonical_count_bytes({DATA!r}, kmers_tpu_torch.CountConfig(K=7),
                                                               device="cpu"), reps=1, top=3)
+kt = kmers_tpu_torch
+scalar = [
+    str(kt.DNAKmer("ACGTTGCA").canonical()),
+    [k.value for k in kt.CanonicalDNAMers(3, "ACGTTG")],
+    [cs.x for cs in kt.reverse_translate(kt.AAKmer("KWCL"))],
+    repr(kt.rand_kmer(kt.DNAAlphabet2, 12, rng=5)).startswith("DNA 12-mer: "),
+    [str(k) for k in kt.SpacedAAMers(2, 3, "KWCLMNP")],
+]
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--device", "cpu"])
 main(["count", sys.argv[1], "-k", "5", "--top", "1", "--stream", "--device", "cpu"])
 main(["sketch", sys.argv[1], "-k", "5", "-s", "3", "--device", "cpu"])
@@ -106,6 +115,7 @@ print(json.dumps({{
     "native": native_available() and read_fastx(sys.argv[1])[1].tolist() == [0, 12, 19],
     "checkpoint": back40.tolist() == kmers40.tolist() and back_counts40.tolist() == counts40.tolist(),
     "profiled": len(top),
+    "scalar": scalar,
     "jax": "jax" in sys.modules,
     "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu"),
 }}))
@@ -139,6 +149,8 @@ def test_port_runs_without_importing_jax(tmp_path):
         "streamed": TOTAL, "merged": 2 * TOTAL,
         "bench": ["metric", "unit", "value", "vs_baseline"], "sorted": True, "native": True,
         "checkpoint": True, "profiled": 3, "jax": False, "kmers_tpu": [],
+        "scalar": ["ACGTTGCA", [6, 6, 1, 16], [0x5, 0x0400000000000000, 0x0A00000000000000,
+                                                0x50000000F0000000], True, ["KW", "LM"]],
     }
     # the totals of both count commands
     totals = [json.loads(x) for x in proc.stderr.strip().splitlines()[-2:]]
@@ -157,6 +169,9 @@ def test_sources_hold_the_new_modules():
         "kmers_tpu_torch/parallel/pipeline.py", "kmers_tpu_torch/parallel/minimizers.py",
         "kmers_tpu_torch/parallel/multiword.py", "kmers_tpu_torch/parallel/sixframe.py",
         "kmers_tpu_torch/alphabets.py", "kmers_tpu_torch/random.py", "kmers_tpu_torch/ops/stats.py",
+        "kmers_tpu_torch/symbols.py", "kmers_tpu_torch/genetic_codes.py", "kmers_tpu_torch/kmer.py",
+        "kmers_tpu_torch/seq.py", "kmers_tpu_torch/construction.py", "kmers_tpu_torch/functions.py",
+        "kmers_tpu_torch/revtrans.py", "kmers_tpu_torch/iterators.py",
     } <= names
 
 
