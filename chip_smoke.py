@@ -116,6 +116,21 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the halves as two records, ``verify`` exiting 0 and, after one changed
    byte of the input, 1; a K = 47 round trip on 300 kb.
 
+11. docs and examples (``phase_docs_examples``): every ```python block of
+   ``docs/torch_port/*.md`` on the card with ``device="cuda"`` (the CPU
+   test's preamble with ``seq`` the chromosome's first 2^20 certain bases
+   and a FASTQ of 20,000 reads; one page's blocks share a namespace), with
+   the launches of K1 in both modes, K2, K6, K9 and K10 required; then the
+   four ``examples/torch_port`` scripts, each in a fresh interpreter with
+   ``--device cuda``: ``count_fasta.py -k 31`` on the whole chromosome equal
+   to phase 4's table (distinct count, total and top-10 lines),
+   ``stream_count.py`` on phase 8's 400,000 reads equal to its table,
+   ``minimizer_index.py -k 15 -w 10`` on the first 8 Mb equal to
+   ``minimizer_select`` in process on the same clean segments, and
+   ``sketch_compare.py`` on the first 8 Mb, a copy with 1 % of its bases
+   changed and an unrelated 8 Mb, equal to ``jaccard(minhash_sketch(...))``
+   in process; each example's wall time and the phase's.
+
 The kernel phase also holds K11 (edge cases at one and two tiles, runs of
 equal keys across merge rounds, keys off a 16-byte boundary, the local pass
 and the full sort at 2^20, 2^24 and 2^26 keys, the full sort equal to
@@ -134,9 +149,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gzip
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2005,7 +2022,9 @@ def stream_host_split(fq: Path, cfg, smi: str) -> None:
 def phase_stream(chrom: np.ndarray, smi: str):
     """Streamed counting of a FASTQ read set, the device merge of two
     halves' tables, the ``bench`` path and the CLI's ``count --stream``;
-    returns the launch counts of the streamed run, the merge and ``bench``."""
+    returns the launch counts of the streamed run, the merge and ``bench``,
+    and what ``examples/torch_port/stream_count.py`` must print for the
+    streamed table."""
     import torch
 
     from kmers_tpu_torch import CountConfig, canonical_count_records, count_fastx_stream, merge_counts_device
@@ -2053,6 +2072,7 @@ def phase_stream(chrom: np.ndarray, smi: str):
     require(np.array_equal(kmers, whole[0]) and np.array_equal(counts, whole[1]),
             "streamed counts differ from canonical_count_records")
     log("[stream] equal to the numpy reference and to canonical_count_records on the card")
+    stream_stdout = stream_count_stdout(kmers, counts, K)  # held against the example in the last phase
 
     # the device merge of the two halves' tables: records never share a
     # window, so it is the table of all the reads
@@ -2108,7 +2128,8 @@ def phase_stream(chrom: np.ndarray, smi: str):
             and [int(c) for _, c in top] == sorted(want.values(), reverse=True)[:3],
             f"CLI count --stream top lines {top}")
     log(f"[stream] CLI count --stream on a 3-record FASTQ: {totals}, equal to the string counter")
-    return collections.Counter(launches) + collections.Counter(m_launches) + collections.Counter(bench_launches)
+    launches = collections.Counter(launches) + collections.Counter(m_launches) + collections.Counter(bench_launches)
+    return launches, stream_stdout
 
 
 def phase_sort(chrom: np.ndarray, smi: str) -> dict:
@@ -2770,6 +2791,222 @@ def phase_scalar_oracle(chrom: np.ndarray, smi: str) -> None:
     log(f"[scalar] phase in {time.perf_counter() - t_phase:.1f} s, launches {dict(launches)} ({smi})")
 
 
+# ------------------------------------------------------ docs and examples
+
+DOCS_PORT = ROOT / "docs" / "torch_port"
+EXAMPLES_PORT = ROOT / "examples" / "torch_port"
+DOCS_BASES = 1 << 20  # the pages' ``seq`` on the card: two K = 31 chunks, so K9 folds
+DOCS_READS = 20_000  # reads of the pages' FASTQ
+EXAMPLE_SLICE = 8_000_000  # the inputs of minimizer_index.py and sketch_compare.py
+EXAMPLE_MUTATION = 0.01
+
+
+def doc_pages() -> list:
+    """``(name, blocks)`` for each page of ``docs/torch_port`` that holds
+    ```python blocks, in name order."""
+    out = []
+    for p in sorted(DOCS_PORT.glob("*.md")):
+        blocks = re.findall(r"```python\n(.*?)```", p.read_text(), re.S)
+        if blocks:
+            out.append((p.name, blocks))
+    return out
+
+
+def docs_namespace(seq: str, fastx_path: str, tmp_path: Path, device) -> dict:
+    """The free variables of the port's pages, as ``tests/test_docs.py``'s
+    preamble binds them for the JAX pages: a DNA string ``seq`` (and
+    ``seq_a``, ``seq_b``), its 2-bit ``codes`` on ``device``, the window
+    parameters ``K`` and ``W``, a 4-bit ``Seq``, a checkpoint's ``rank`` and
+    ``n``, a few names of the top level, ``tmp_path``, a gzip FASTQ file
+    ``fastx_path`` and ``device``."""
+    import torch
+
+    import kmers_tpu_torch as kt
+    from kmers_tpu_torch.ops.encode import classify_2bit
+
+    data = torch.frombuffer(bytearray(seq.encode()), dtype=torch.uint8).to(device)
+    return {
+        "np": np,
+        "seq": seq,
+        "seq_a": seq,
+        "seq_b": seq[1:] + "A",
+        "codes": classify_2bit(data)[0],
+        "K": 15,
+        "W": 10,
+        "seq4bit": kt.Seq(kt.DNAAlphabet4(), "TGCA"),
+        "rank": 0,
+        "n": 1,
+        "fx_hash": kt.fx_hash,
+        "CanonicalDNAMers": kt.CanonicalDNAMers,
+        "AAKmer": kt.AAKmer,
+        "DNAAlphabet2": kt.DNAAlphabet2,
+        "DNAAlphabet4": kt.DNAAlphabet4,
+        "AminoAcidAlphabet": kt.AminoAcidAlphabet,
+        "ncbi_trans_table": kt.ncbi_trans_table,
+        "tmp_path": tmp_path,
+        "fastx_path": fastx_path,
+        "device": device,
+    }
+
+
+def run_doc_blocks(page: str, blocks, ns: dict) -> list:
+    """Run ``blocks`` one after another in ``ns`` (one page's blocks share a
+    namespace); for each block, the names it bound or rebound and their
+    values.  A block that raises ends the run."""
+    bound = []
+    for i, block in enumerate(blocks):
+        before = dict(ns)
+        try:
+            exec(compile(block, f"{page}[block {i}]", "exec"), ns)
+        except Exception as e:
+            raise SystemExit(f"chip_smoke: FAILED: {page} block {i}: {e!r}\n{block}") from e
+        bound.append({k: v for k, v in ns.items() if k not in before or before[k] is not v})
+    return bound
+
+
+def count_fasta_stdout(kmers: np.ndarray, counts: np.ndarray, k: int, top: int = 10) -> str:
+    """What ``examples/torch_port/count_fasta.py`` prints for this table:
+    its totals, then its ``top`` lines, ordered the example's way."""
+    from kmers_tpu_torch import DNAAlphabet2, Kmer
+
+    order = np.argsort(counts)[::-1]
+    lines = [f"{kmers.size} distinct canonical {k}-mers, {counts.sum()} total windows"]
+    lines += [f"  {Kmer.unsafe(DNAAlphabet2(), k, int(kmers[i]))}\t{counts[i]}" for i in order[:top]]
+    return "\n".join(lines) + "\n"
+
+
+def stream_count_stdout(kmers: np.ndarray, counts: np.ndarray, k: int) -> str:
+    """What ``examples/torch_port/stream_count.py`` prints for this table."""
+    from kmers_tpu_torch import DNAAlphabet2, Kmer
+
+    lines = [f"distinct canonical {k}-mers: {kmers.size:,}",
+             f"total counted windows:      {int(counts.sum()):,}"]
+    lines += [f"  {Kmer.unsafe(DNAAlphabet2(), k, int(kmers[i]))}  x{counts[i]}"
+              for i in counts.argsort()[::-1][:5]]
+    return "\n".join(lines) + "\n"
+
+
+def run_example(name: str, *args) -> tuple:
+    """Run ``examples/torch_port/<name>`` with ``args`` and ``--device cuda``
+    in a fresh interpreter; its stdout and its wall seconds."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(EXAMPLES_PORT / name), *map(str, args), "--device", "cuda"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"example {name} failed: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def mutate(seq: np.ndarray, rate: float, seed: int) -> np.ndarray:
+    """A copy of ``seq`` with a ``rate`` share of its positions, where they
+    hold a base (either case), changed to another base of the same case."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = seq.copy()
+    where = np.flatnonzero((rng.random(seq.size) < rate) & np.isin(seq & 0xDF, acgt))
+    code = np.searchsorted(acgt, out[where] & 0xDF)
+    out[where] = acgt[(code + 1) % 4] | (out[where] & 0x20)
+    return out
+
+
+def phase_docs_examples(chrom: np.ndarray, smi: str, expect_31: str, expect_stream: str) -> dict:
+    """Every ```python block of ``docs/torch_port/*.md`` on the card, and the
+    four ``examples/torch_port`` scripts with ``--device cuda``, each held
+    against what an earlier phase proved or against the in-process call;
+    returns the snippets' launch counts."""
+    import torch
+
+    from kmers_tpu_torch.ops.kernels.general_kernel import windows_general, windows_k32
+    from kmers_tpu_torch.ops.kernels.merge_kernel import compact_table, merge_tables
+    from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words
+    from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit
+    from kmers_tpu_torch.ops.kernels.sixframe_kernel import sixframe_windows, sixframe_words
+    from kmers_tpu_torch.ops.kernels.window_kernel import canonical_hashes, canonical_windows
+    from kmers_tpu_torch.pipelines import jaccard, minhash_sketch, minimizer_select
+
+    kernels = (canonical_windows, canonical_hashes, rle_unit, merge_tables, compact_table, windows_general,
+               windows_k32, canonical_words, sixframe_windows, sixframe_words)
+    phase_t0 = time.perf_counter()
+    # the pages' seq: the chromosome's first 2^20 certain bases, upper-cased
+    # (the scalar iterators of the pages raise on ambiguous codes)
+    head = chrom[: 2 * DOCS_BASES] & 0xDF
+    certain = head[np.isin(head, np.frombuffer(b"ACGT", np.uint8))]
+    require(certain.size >= DOCS_BASES, "too few certain bases for the pages")
+    seq = certain[:DOCS_BASES].tobytes().decode()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = Path(tmp) / "reads.fq.gz"  # the name the streaming blocks read
+        plain = Path(tmp) / "reads.fq"
+        write_fastq(plain, sample_reads(chrom[: 4 * DOCS_BASES], DOCS_READS, READ_LEN, seed=14))
+        fq.write_bytes(gzip.compress(plain.read_bytes(), compresslevel=1))
+        os.chdir(tmp)  # the pages write and read relative paths
+        try:
+            for k in kernels:
+                k.launches = 0
+            for page, blocks in doc_pages():
+                ns = docs_namespace(seq, str(fq), Path(tmp), "cuda")
+                t0 = time.perf_counter()
+                run_doc_blocks(page, blocks, ns)
+                torch.cuda.synchronize()
+                log(f"[docs] {page}: {len(blocks)} blocks on the card in {time.perf_counter() - t0:.2f} s")
+            launches = {k.__name__: k.launches for k in kernels}
+        finally:
+            os.chdir(cwd)
+    log(f"[docs] launches of the pages' blocks: {launches} ({smi})")
+    missing = [n for n in ("canonical_windows", "canonical_hashes", "rle_unit", "merge_tables", "compact_table",
+                           "windows_general") if not launches[n]]
+    require(not missing, f"the pages never launched {missing}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fa = tmp / "chrom.fa"
+        _fasta(fa, [chrom])
+        out, wall = run_example("count_fasta.py", fa, "-k", K)
+        require(out == expect_31, f"count_fasta.py printed\n{out}\nnot\n{expect_31}")
+        log(f"[examples] count_fasta.py -k {K} on {chrom.size} bases: {wall:.2f} s wall, equal to phase 4's "
+            f"table: {out.splitlines()[0]}")
+        fa.unlink()
+
+        reads = tmp / "reads.fq"
+        write_fastq(reads, sample_reads(chrom, READS, READ_LEN, seed=8))
+        out, wall = run_example("stream_count.py", reads)
+        require(out == expect_stream, f"stream_count.py printed\n{out}\nnot\n{expect_stream}")
+        log(f"[examples] stream_count.py on {READS} reads of {READ_LEN} bp: {wall:.2f} s wall, equal to the "
+            f"stream phase's table: {out.splitlines()[0]}")
+        reads.unlink()
+
+        part = chrom[:EXAMPLE_SLICE]
+        _fasta(tmp / "head.fa", [part])
+        out, wall = run_example("minimizer_index.py", tmp / "head.fa", "-k", 15, "-w", 10)
+        vals = [minimizer_select(m.group(0), K=15, W=10, device="cuda")[0]
+                for m in re.finditer(rb"[ACGT]+", part.tobytes().upper()) if len(m.group(0)) >= 15 + 10 - 1]
+        vals = np.concatenate(vals)
+        want = (f"{np.unique(vals).size} distinct minimizers, {vals.size} positions, "
+                f"density {vals.size / part.size:.3f} (expected ~{2 / 11:.3f})\n")
+        require(out == want, f"minimizer_index.py printed {out!r}, not {want!r}")
+        log(f"[examples] minimizer_index.py -k 15 -w 10 on {part.size} bases: {wall:.2f} s wall, equal to "
+            f"minimizer_select in process: {out.strip()}")
+
+        inputs = [part, mutate(part, EXAMPLE_MUTATION, seed=15), synth_chromosome(EXAMPLE_SLICE, seed=16)]
+        paths = [tmp / "head.fa", tmp / "mutated.fa", tmp / "other.fa"]
+        for path, arr in zip(paths[1:], inputs[1:]):
+            _fasta(path, [arr])
+        out, wall = run_example("sketch_compare.py", *paths)
+        sketches = [minhash_sketch(arr.tobytes(), K=16, s=1000, device="cuda") for arr in inputs]
+        rows = [[jaccard(a, b) for b in sketches] for a in sketches]
+        want = "\t" + "\t".join(map(str, paths)) + "\n" + "".join(
+            f"{p}\t" + "\t".join(f"{j:.3f}" for j in row) + "\n" for p, row in zip(paths, rows))
+        require(out == want, f"sketch_compare.py printed\n{out}\nnot\n{want}")
+        require(all(rows[i][i] == 1.0 for i in range(3)) and 0.3 < rows[0][1] < 1.0 and rows[0][2] < 0.05,
+                f"sketch_compare.py's matrix {rows}")
+        log(f"[examples] sketch_compare.py on 3 FASTAs of {EXAMPLE_SLICE} bases: {wall:.2f} s wall, equal to "
+            f"jaccard(minhash_sketch(...)) in process: J(head, {EXAMPLE_MUTATION:.0%} mutated) "
+            f"{rows[0][1]:.3f}, J(head, unrelated) {rows[0][2]:.3f}")
+    log(f"[docs examples] phase in {time.perf_counter() - phase_t0:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2786,6 +3023,7 @@ def main() -> int:
     launches_31, table_31 = phase_slice(chrom, smi)
     t0 = time.perf_counter()
     launches_parallel = phase_parallel(chrom, smi, table_31)
+    expect_31 = count_fasta_stdout(*table_31, K)  # held against the example in the last phase
     del table_31
     log(f"[parallel] parallel phase in {time.perf_counter() - t0:.1f} s")
     launches_47 = phase_slice_mw(chrom, smi)
@@ -2801,7 +3039,7 @@ def main() -> int:
     log(f"[parallel sixframe] sharded six-frame phase in {time.perf_counter() - t0:.1f} s")
     phase_scalar_oracle(chrom, smi)
     t0 = time.perf_counter()
-    launches_stream = phase_stream(chrom, smi)
+    launches_stream, expect_stream = phase_stream(chrom, smi)
     log(f"[stream] streaming, tables and bench phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches_sort = phase_sort(chrom, smi)
@@ -2809,6 +3047,7 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_checkpoint = phase_checkpoint(chrom, smi)
     log(f"[checkpoint] checkpoint phase in {time.perf_counter() - t0:.1f} s")
+    launches_docs = phase_docs_examples(chrom, smi, expect_31, expect_stream)
     require("jax" not in sys.modules, "jax was imported")
     require(not [m for m in sys.modules if m.split(".")[0] == "kmers_tpu"],
             "the JAX package was imported")
@@ -2818,7 +3057,7 @@ def main() -> int:
     launches = (collections.Counter(launches_31) + collections.Counter(launches_47) + launches_sketch
                 + launches_sixframe + collections.Counter(launches_stream)
                 + collections.Counter(launches_sort) + collections.Counter(launches_checkpoint)
-                + launches_parallel)
+                + launches_parallel + collections.Counter(launches_docs))
     unused = [name for name in entries if not launches[name]]
     require(not unused, f"kernels never launched on their paths: {unused}")
     kernels = [

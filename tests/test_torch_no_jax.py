@@ -9,8 +9,10 @@ over three CPU ranks), the scalar plane (``DNAKmer``,
 ``SpacedAAMers``), the native FASTA scanner, a count-table checkpoint round trip, ``profile_step`` and the
 CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``, the
 sharded ``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
-``sys.modules``; and no source of the port or of ``chip_smoke.py`` has such
-an import."""
+``sys.modules``; a fresh interpreter that runs
+``examples/torch_port/count_fasta.py`` finds neither either; and no source
+of the port, of its examples or of ``chip_smoke.py``, and no block of
+``docs/torch_port/*.md``, has such an import."""
 
 import json
 import os
@@ -157,11 +159,51 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert totals[0] == totals[1] and totals[0]["total"] == (12 - 4) + (7 - 4)
 
 
-SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+           *(ROOT / "examples" / "torch_port").glob("*.py")]
+
+EXAMPLE_SCRIPT = """
+import json, runpy, sys
+path = sys.argv[1]
+sys.argv = [path, *sys.argv[2:]]
+runpy.run_path(path, run_name="__main__")
+print(json.dumps({"jax": "jax" in sys.modules,
+                  "kmers_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "kmers_tpu")}))
+"""
+
+
+def test_an_example_runs_without_importing_jax(tmp_path):
+    fa = tmp_path / "r.fa"
+    fa.write_text(">a\nACGTACGGTTACNNACGTACGGTTAC\n>b\nTTGACCARTTGACCA\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    example = ROOT / "examples" / "torch_port" / "count_fasta.py"
+    proc = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_SCRIPT, str(example), str(fa), "-k", "5", "--top", "2",
+         "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    # 8 + 8 + 3 + 3 windows of K = 5 between the N run and the R
+    assert lines[0].endswith("22 total windows") and len(lines) == 4
+    assert json.loads(lines[-1]) == {"jax": False, "kmers_tpu": []}
+
+
+def test_port_pages_do_not_import_jax():
+    pages = sorted((ROOT / "docs" / "torch_port").glob("*.md"))
+    assert len(pages) == 13
+    for page in pages:
+        for block in re.findall(r"```(?:python|text)?\n(.*?)```", page.read_text(), re.S):
+            assert not re.search(r"^\s*(import|from)\s+jax\b", block, re.M), page
+            assert not JAX_PACKAGE_IMPORT.search(block), page
 
 
 def test_sources_hold_the_new_modules():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {
+        "examples/torch_port/count_fasta.py", "examples/torch_port/stream_count.py",
+        "examples/torch_port/minimizer_index.py", "examples/torch_port/sketch_compare.py",
+    } <= names
     assert {
         "kmers_tpu_torch/io/native/__init__.py", "kmers_tpu_torch/utils/checkpoint.py",
         "kmers_tpu_torch/utils/profiling.py", "kmers_tpu_torch/ops/kernels/sort_kernel.py",

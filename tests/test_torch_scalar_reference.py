@@ -1,30 +1,26 @@
 """The JAX package's own scalar-plane tests, run against the port.
 
-Each of ``FILES`` is read as text, unedited: every import of ``kmers_tpu``
-(the top level and its submodules, module-level and function-local, in
-both ``import`` and ``from`` form) is rewritten to ``kmers_tpu_torch``,
-``ast`` checks that no import of the JAX package is left, and the result
-runs in a module namespace of its own.  Its tests are exposed here under
-names prefixed with the file's stem, so names repeated across files do
-not clash.  The files define no fixtures of their own; ``conftest.py``'s
-``rng`` serves them all.
+Each of ``FILES`` is loaded by ``torch_reference.load``: read as text,
+unedited, every import of ``kmers_tpu`` (the top level and its submodules,
+module-level and function-local, in both ``import`` and ``from`` form)
+rewritten to ``kmers_tpu_torch``, ``ast`` checks that no import of the JAX
+package is left, and the result runs in a module namespace of its own.
+Its tests are exposed here under names prefixed with the file's stem, so
+names repeated across files do not clash.  The files define no fixtures of
+their own; ``conftest.py``'s ``rng`` serves them all.
 
-Left out (``LEFT_OUT``): the cases that reach the array plane, whose port
-defaults to ``device="cuda"``; the port's ``test_torch_canonical_count.py``
-and ``test_torch_extract.py`` hold those paths against the JAX package on
-the CPU:
-
-- ``test_properties.py::TestPipelineProperties::test_counting_oracle``
-- ``test_properties.py::TestPipelineProperties::test_minimizer_skip_oracle``
-- ``test_goldens.py::TestGoldens::test_array_plane`` (4 cases)
+A few cases reach the array plane (``test_properties.py``'s
+``TestPipelineProperties``, ``test_goldens.py``'s ``test_array_plane``),
+whose entry points default to ``device="cuda"``; an autouse fixture binds
+the CPU for each test (``torch_reference.bind_cpu``) and puts the defaults
+back after.  No case is left out.
 """
 
 import ast
-import re
-import types
-from pathlib import Path
 
-HERE = Path(__file__).resolve().parent
+import pytest
+
+from torch_reference import bind_cpu, expose, imported_modules, load, port_source
 
 FILES = (
     "test_kmer.py",
@@ -38,67 +34,15 @@ FILES = (
     "test_revtrans.py",
 )
 
-#: file -> {class: methods left out, or None for the whole class}
-LEFT_OUT = {
-    "test_properties.py": {"TestPipelineProperties": None},
-    "test_goldens.py": {"TestGoldens": ("test_array_plane",)},
-}
 
-# ``import kmers_tpu...`` / ``from kmers_tpu... import``, at any indentation
-_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)kmers_tpu\b(?!_torch)", re.M)
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    with bind_cpu():
+        yield
 
 
-def port_source(src: str) -> str:
-    """``src`` with every import of the JAX package pointed at the port."""
-    return _IMPORT.sub(r"\1kmers_tpu_torch", src)
-
-
-def imported_modules(tree: ast.AST) -> list:
-    """The module names that ``tree``'s import statements name."""
-    out = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            out += [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            out.append(node.module)
-    return out
-
-
-def load(name: str) -> types.ModuleType:
-    """Run the rewritten ``tests/<name>`` in a fresh module namespace."""
-    path = HERE / name
-    src = port_source(path.read_text())
-    tree = ast.parse(src, filename=str(path))
-    left = [m for m in imported_modules(tree) if m.split(".")[0] == "kmers_tpu"]
-    assert not left, f"{name} still imports {left}"
-    mod = types.ModuleType(f"torch_scalar_reference.{path.stem}")
-    mod.__file__ = str(path)
-    exec(compile(tree, str(path), "exec"), mod.__dict__)
-    return mod
-
-
-def _expose(name: str, mod: types.ModuleType) -> int:
-    """Copy the tests of ``mod``, loaded from ``name``, into this module's
-    globals; returns how many test functions and classes it exposed."""
-    tag = Path(name).stem[len("test_"):]
-    skip = LEFT_OUT.get(name, {})
-    n = 0
-    for attr, obj in vars(mod).items():
-        if attr.startswith("test_") and callable(obj):
-            globals()[f"test_{tag}__{attr[len('test_'):]}"] = obj
-            n += 1
-        elif attr.startswith("Test") and isinstance(obj, type):
-            if attr in skip and skip[attr] is None:
-                continue
-            for method in skip.get(attr, ()):
-                delattr(obj, method)  # the class is this namespace's own
-            globals()[f"Test_{tag}__{attr[len('Test'):]}"] = obj
-            n += 1
-    return n
-
-
-MODULES = {name: load(name) for name in FILES}
-EXPOSED = {name: _expose(name, mod) for name, mod in MODULES.items()}
+MODULES = {name: load(name, "torch_scalar_reference") for name in FILES}
+EXPOSED = {name: expose(name, mod, globals()) for name, mod in MODULES.items()}
 
 
 def test_rewrite_covers_every_import_form():
