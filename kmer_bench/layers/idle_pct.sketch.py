@@ -1,0 +1,8 @@
+"""idle_pct.sketch: the share of the traced calls' wall time in which the
+card ran no kernel and no copy (this process's card)."""
+
+from kmer_bench.trace import idle_pct
+
+
+def read(tr):
+    return idle_pct(tr)
