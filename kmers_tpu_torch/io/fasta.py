@@ -17,6 +17,7 @@ import gzip
 
 import numpy as np
 
+from ..utils.profiling import annotate
 from . import native
 
 __all__ = [
@@ -191,23 +192,29 @@ def _fastx_cut(buf: bytes, is_fastq: bool) -> int:
 
 
 def _stream_fastx_file(f, batch_bytes: int):
+    """Each batch's read and scan runs in the span ``kmers.parse``, closed
+    before the batch is yielded."""
     carry = b""
     is_fastq = None
     while True:
-        block = f.read(batch_bytes)
-        if not block:
-            break
-        buf = carry + block
-        if is_fastq is None:
-            if buf[:1] == b"@":
-                is_fastq = True
-            elif buf[:1] == b">":
-                is_fastq = False
-            else:
-                raise ValueError("malformed FASTA/FASTQ input")
-        cut = _fastx_cut(buf, is_fastq)
-        emit, carry = buf[:cut], buf[cut:]
-        if emit:
-            yield read_fastx_bytes(emit)
+        with annotate("kmers.parse"):
+            block = f.read(batch_bytes)
+            if not block:
+                break
+            buf = carry + block
+            if is_fastq is None:
+                if buf[:1] == b"@":
+                    is_fastq = True
+                elif buf[:1] == b">":
+                    is_fastq = False
+                else:
+                    raise ValueError("malformed FASTA/FASTQ input")
+            cut = _fastx_cut(buf, is_fastq)
+            emit, carry = buf[:cut], buf[cut:]
+            records = read_fastx_bytes(emit) if emit else None
+        if records is not None:
+            yield records
     if carry:
-        yield read_fastx_bytes(carry)
+        with annotate("kmers.parse"):
+            records = read_fastx_bytes(carry)
+        yield records

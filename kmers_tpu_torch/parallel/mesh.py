@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import annotate, count
+
 __all__ = ["Mesh", "data_mesh"]
 
 
@@ -71,11 +73,14 @@ class Mesh:
 
     def put(self, rows: np.ndarray) -> list:
         """Each local rank's row of the host array ``rows`` (one row a rank
-        of the whole mesh), uploaded to that rank's device."""
+        of the whole mesh), uploaded to that rank's device (span
+        ``kmers.upload``, counter ``upload_bytes``)."""
         if rows.shape[0] != self.size:
             raise ValueError(f"{rows.shape[0]} rows for a mesh of {self.size} ranks")
-        return [torch.from_numpy(np.ascontiguousarray(rows[r])).to(dev)
-                for r, dev in zip(self.ranks, self.devices)]
+        with annotate("kmers.upload"):
+            count("upload_bytes", sum(rows[r].nbytes for r in self.ranks))
+            return [torch.from_numpy(np.ascontiguousarray(rows[r])).to(dev)
+                    for r, dev in zip(self.ranks, self.devices)]
 
     def all_to_all(self, buckets: list) -> list:
         """Exchange per-rank buckets: local rank ``r`` gives a tensor of
@@ -91,19 +96,21 @@ class Mesh:
         return [recv]
 
     def _reduce(self, values: list, op) -> list:
-        parts = [torch.as_tensor(v, dtype=torch.int64).reshape(-1) for v in values]
-        if self.group is None:
-            stacked = torch.stack([p.cpu() for p in parts])
-            out = stacked.sum(0) if op == dist.ReduceOp.SUM else stacked.max(0).values
-            return out.tolist()
-        (part,) = parts
-        part = part.to(self.devices[0]).clone()
-        dist.all_reduce(part, op=op, group=self.group)
-        return part.cpu().tolist()
+        with annotate("kmers.wait"):
+            parts = [torch.as_tensor(v, dtype=torch.int64).reshape(-1) for v in values]
+            if self.group is None:
+                stacked = torch.stack([p.cpu() for p in parts])
+                out = stacked.sum(0) if op == dist.ReduceOp.SUM else stacked.max(0).values
+                return out.tolist()
+            (part,) = parts
+            part = part.to(self.devices[0]).clone()
+            dist.all_reduce(part, op=op, group=self.group)
+            return part.cpu().tolist()
 
     def sum(self, values: list) -> list:
         """Elementwise sum over all ranks of each local rank's 1-D int64
-        values (JAX's ``psum``), as a list of ints on every process."""
+        values (JAX's ``psum``), as a list of ints on every process: a
+        blocking read (span ``kmers.wait``)."""
         return self._reduce(values, dist.ReduceOp.SUM)
 
     def max(self, values: list) -> list:

@@ -42,11 +42,12 @@ import torch
 from ..convert import SENTINEL, SIGN_BIT
 from ..ops.count import _run_length_encode, merge_compact_tables
 from ..ops.hashing import fx_hash_u64
-from ..pipelines._input import ALPHABET, as_byte_array
+from ..pipelines._input import ALPHABET, as_byte_array, download
 from ..pipelines._stream import count_stream
 from ..pipelines.canonical_count import _count_chunk
 from ..symbols import EncodeError
 from ..utils.debug import checked_mode
+from ..utils.profiling import annotate, count
 from .mesh import Mesh, data_mesh
 
 __all__ = [
@@ -141,11 +142,17 @@ def _exchange(tables: list, mesh: Mesh, cap: int, hash_fn, merge_fn):
     if mesh.size == 1:
         # one rank: its table is already the global table
         return [(k, c, (c > 0).sum()) for k, c in tables], 0
-    routed = [_route(k, c, hash_fn(k), mesh.size, cap) for k, c in tables]
-    (overflow,) = mesh.sum([o for _, o in routed])
-    received = mesh.all_to_all([b for b, _ in routed])
-    del routed
-    return [merge_fn(r.reshape(-1, r.shape[-1])) for r in received], overflow
+    with annotate("kmers.exchange"):
+        routed = [_route(k, c, hash_fn(k), mesh.size, cap) for k, c in tables]
+        (overflow,) = mesh.sum([o for _, o in routed])
+        received = mesh.all_to_all([b for b, _ in routed])
+        del routed
+        rows = [r.reshape(-1, r.shape[-1]) for r in received]
+        for r in rows:
+            # the rows a rank's merge sorts (n_dev x cap), and the real ones
+            count("exchange_rows", r.shape[0])
+            count("exchange_rows_real", lambda: (r[:, -1] > 0).sum())
+        return [merge_fn(r) for r in rows], overflow
 
 
 def exchange_and_merge(tables: list, mesh: Mesh, cap: int):
@@ -190,7 +197,8 @@ def _gather_rows(merged: list, mesh: Mesh) -> torch.Tensor:
     """Every rank's real rows, as one ``(m, W + 1)`` tensor on the device
     of this process's first rank.  Each rank's rows are sorted, and no key
     is on two ranks."""
-    return torch.cat(mesh.gather([_real_rows(k, c) for k, c, _ in merged]))
+    with annotate("kmers.gather"):
+        return torch.cat(mesh.gather([_real_rows(k, c) for k, c, _ in merged]))
 
 
 def sharded_count_step(slabs: list, mesh: Mesh, K: int, cap: int, checked: bool = False):
@@ -252,61 +260,62 @@ def sharded_canonical_count(data, config: ShardedCountConfig = ShardedCountConfi
     checks of the reference.  ``metrics``: an optional
     :class:`~kmers_tpu_torch.utils.Metrics` recording one batch.
     """
-    if metrics is not None:
-        metrics.start_batch()
-    arr = as_byte_array(data)
-    if mesh is None:
-        mesh = data_mesh()
-    K = config.K
-    L = arr.shape[0]
-    if L < K:
-        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    dbg = checked_mode()
-    # 'N' padding is the ambiguity class: its windows are skipped, and any
-    # invalid count > 0 is a real input error
-    rows, shard = _shard_with_halo(arr, mesh.size, K, pad_byte=ord("N"))
-    slabs = mesh.put(rows)
-    del rows
-    if -(-shard // config.chunk_size) <= 1:
-        cap = math.ceil(shard * config.bucket_factor / mesh.size)
-        merged, (n_bad, n_valid, n_counted), overflow = sharded_count_step(
-            slabs, mesh, K, cap, checked=dbg
-        )
-    else:
-        merged, (n_bad, n_valid, n_counted), overflow = _streamed_sharded_count(
-            slabs, mesh, config, checked=dbg
-        )
-    del slabs
-    if dbg and n_valid != n_counted:
-        raise RuntimeError(
-            "checked mode: count conservation violated in the sharded local count — "
-            f"{n_valid} valid windows but {n_counted} counted (sentinel collision or kernel bug)"
-        )
-    if n_bad > 0:
-        raise EncodeError(ALPHABET, "<batch input>")
-    if overflow > 0:
-        raise RuntimeError(OVERFLOW_MESSAGE)
+    with annotate("kmers.sharded_count"):
+        if metrics is not None:
+            metrics.start_batch()
+        arr = as_byte_array(data)
+        if mesh is None:
+            mesh = data_mesh()
+        K = config.K
+        L = arr.shape[0]
+        if L < K:
+            return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        dbg = checked_mode()
+        # 'N' padding is the ambiguity class: its windows are skipped, and any
+        # invalid count > 0 is a real input error
+        rows, shard = _shard_with_halo(arr, mesh.size, K, pad_byte=ord("N"))
+        slabs = mesh.put(rows)
+        del rows
+        if -(-shard // config.chunk_size) <= 1:
+            cap = math.ceil(shard * config.bucket_factor / mesh.size)
+            merged, (n_bad, n_valid, n_counted), overflow = sharded_count_step(
+                slabs, mesh, K, cap, checked=dbg
+            )
+        else:
+            merged, (n_bad, n_valid, n_counted), overflow = _streamed_sharded_count(
+                slabs, mesh, config, checked=dbg
+            )
+        del slabs
+        if dbg and n_valid != n_counted:
+            raise RuntimeError(
+                "checked mode: count conservation violated in the sharded local count — "
+                f"{n_valid} valid windows but {n_counted} counted (sentinel collision or kernel bug)"
+            )
+        if n_bad > 0:
+            raise EncodeError(ALPHABET, "<batch input>")
+        if overflow > 0:
+            raise RuntimeError(OVERFLOW_MESSAGE)
 
-    rows = _gather_rows(merged, mesh)
-    keys, counts = rows[:, 0], rows[:, 1]
-    if mesh.size > 1:
-        keys, order = torch.sort(keys)
-        counts = counts[order]
-    # real keys are non-negative: their int64 bits are the uint64 values
-    kmers = keys.contiguous().cpu().numpy().view(np.uint64)
-    counts = counts.contiguous().cpu().numpy()
-    if dbg and int(counts.sum()) != n_valid:
-        # end to end: the exchange neither drops nor duplicates counts
-        raise RuntimeError(
-            "checked mode: count conservation violated across the exchange — "
-            f"{n_valid} valid windows but {int(counts.sum())} in the merged table"
-        )
-    if metrics is not None:
-        counted = int(counts.sum())
-        metrics.end_batch(
-            bases_in=L,
-            windows_out=counted,
-            windows_skipped=max(L - K + 1, 0) - counted,
-            distinct_kmers=int(kmers.shape[0]),
-        )
-    return kmers, counts
+        rows = _gather_rows(merged, mesh)
+        keys, counts = rows[:, 0], rows[:, 1]
+        if mesh.size > 1:
+            keys, order = torch.sort(keys)
+            counts = counts[order]
+        # real keys are non-negative: their int64 bits are the uint64 values
+        kmers = download(keys.contiguous()).view(np.uint64)
+        counts = download(counts.contiguous())
+        if dbg and int(counts.sum()) != n_valid:
+            # end to end: the exchange neither drops nor duplicates counts
+            raise RuntimeError(
+                "checked mode: count conservation violated across the exchange — "
+                f"{n_valid} valid windows but {int(counts.sum())} in the merged table"
+            )
+        if metrics is not None:
+            counted = int(counts.sum())
+            metrics.end_batch(
+                bases_in=L,
+                windows_out=counted,
+                windows_skipped=max(L - K + 1, 0) - counted,
+                distinct_kmers=int(kmers.shape[0]),
+            )
+        return kmers, counts

@@ -20,6 +20,7 @@ import torch
 
 from ..ops.count import compact_counts
 from ..utils.levelstack import LevelStack
+from ..utils.profiling import annotate
 from ..utils.streamq import DrainQueue
 
 __all__ = ["count_stream", "level_stack", "push_chunks"]
@@ -33,14 +34,18 @@ def _starts(n: int, span: int, chunk_size: int) -> range:
 def level_stack(merge) -> LevelStack:
     """A level stack of front-packed ``(keys, counts)`` tables folded by
     ``merge(ka, ca, kb, cb) -> (keys, counts, n_unique)``; each merged
-    table is cut to its ``n_unique`` live rows (one host round trip)."""
+    table is cut to its ``n_unique`` live rows (one host round trip).
+    Span ``kmers.fold`` a merge and its cut, ``kmers.wait`` the read."""
 
-    def _slice(out):
-        keys, counts, n_unique = out
-        nu = int(n_unique)
-        return keys[..., :nu], counts[:nu]
+    def _fold(a, b):
+        with annotate("kmers.fold"):
+            keys, counts, n_unique = merge(*a, *b)
+            with annotate("kmers.wait"):
+                nu = int(n_unique)
+            return keys[..., :nu], counts[:nu]
 
-    return LevelStack(lambda a, b: merge(*a, *b), _slice)
+    # the cut is inside the merge's span, so the stack's own cut is the identity
+    return LevelStack(_fold, lambda table: table)
 
 
 def push_chunks(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, stack) -> list:
@@ -65,7 +70,9 @@ def push_chunks(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, stac
 
     queue = DrainQueue(_drain)
     for start in _starts(buf.shape[0], span, chunk_size):
-        queue.push(*count_chunk(buf[start : start + chunk_size]))
+        with annotate("kmers.chunk"):
+            out = count_chunk(buf[start : start + chunk_size])
+        queue.push(*out)
     queue.flush()
     return tallies
 
@@ -78,8 +85,11 @@ def count_stream(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, mer
     """
     if len(_starts(buf.shape[0], span, chunk_size)) == 1:
         # one chunk: no compaction, no merge; the final mask drops padding
-        table, scalars = count_chunk(buf)
-        return table, scalars.tolist()[1:]
+        with annotate("kmers.chunk"):
+            table, scalars = count_chunk(buf)
+        with annotate("kmers.wait"):
+            tallies = scalars.tolist()[1:]
+        return table, tallies
     stack = level_stack(merge)
     tallies = push_chunks(buf, span, chunk_size, count_chunk, stack)
     return stack.fold(), tallies

@@ -37,7 +37,8 @@ from ..ops.kernels.window_kernel import canonical_windows
 from ..ops.multiword import canonical_windows_mw_bytes, merge_compact_tables_mw, sort_count_mw
 from ..symbols import EncodeError
 from ..utils.debug import checked_mode
-from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device
+from ..utils.profiling import annotate
+from ._input import ALPHABET, as_byte_array, download, join_records_with_n, resolve_device, upload
 from ._stream import count_stream
 from .extract import extract_kmers
 
@@ -128,7 +129,7 @@ def _upload(data, config: CountConfig, device):
         raise ValueError(f"chunk_size ({chunk_size}) must be >= K ({config.K})")
     if arr.shape[0] < config.K:
         return None
-    return torch.tensor(arr, dtype=torch.uint8, device=device), chunk_size
+    return upload(arr, device), chunk_size
 
 
 def canonical_count_bytes(
@@ -144,45 +145,46 @@ def canonical_count_bytes(
     ``metrics``: an optional :class:`~kmers_tpu_torch.utils.Metrics` that
     records one batch (K <= 31 only, as in the reference).
     """
-    device = resolve_device(device)
-    if config.K > 31:
-        return _canonical_count_multiword(data, config, device)
-    if metrics is not None:
-        metrics.start_batch()
-    K = config.K
-    up = _upload(data, config, device)
-    if up is None:
-        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    buf, chunk_size = up
-    dbg = checked_mode()
-    track = dbg or metrics is not None
-    acc, tallies = count_stream(
-        buf, K, chunk_size, lambda c: _count_chunk(c, K, track), merge_compact_tables
-    )
-    n_invalid, n_ambig, *tracked = tallies
-    _check_bytes(n_invalid, n_ambig, config)
-    n_valid, n_counted = tracked if track else (0, 0)
-    if dbg and n_valid != n_counted:
-        raise RuntimeError(
-            "checked mode: count conservation violated — "
-            f"{n_valid} valid windows but {n_counted} counted (sentinel "
-            "collision or kernel bug)"
+    with annotate("kmers.count_bytes"):
+        device = resolve_device(device)
+        if config.K > 31:
+            return _canonical_count_multiword(data, config, device)
+        if metrics is not None:
+            metrics.start_batch()
+        K = config.K
+        up = _upload(data, config, device)
+        if up is None:
+            return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        buf, chunk_size = up
+        dbg = checked_mode()
+        track = dbg or metrics is not None
+        acc, tallies = count_stream(
+            buf, K, chunk_size, lambda c: _count_chunk(c, K, track), merge_compact_tables
         )
+        n_invalid, n_ambig, *tracked = tallies
+        _check_bytes(n_invalid, n_ambig, config)
+        n_valid, n_counted = tracked if track else (0, 0)
+        if dbg and n_valid != n_counted:
+            raise RuntimeError(
+                "checked mode: count conservation violated — "
+                f"{n_valid} valid windows but {n_counted} counted (sentinel "
+                "collision or kernel bug)"
+            )
 
-    # mask on the device, so only real rows cross to the host; real keys
-    # are non-negative, so their int64 bits are already the uint64 values
-    keep = acc[1] > 0
-    kmers = acc[0][keep].cpu().numpy().view(np.uint64)
-    counts = acc[1][keep].cpu().numpy()
-    if metrics is not None:
-        n_windows = max(buf.shape[0] - K + 1, 0)
-        metrics.end_batch(
-            bases_in=buf.shape[0],
-            windows_out=n_valid,
-            windows_skipped=n_windows - n_valid,
-            distinct_kmers=int(kmers.shape[0]),
-        )
-    return kmers, counts
+        # mask on the device, so only real rows cross to the host; real keys
+        # are non-negative, so their int64 bits are already the uint64 values
+        keep = acc[1] > 0
+        kmers = download(acc[0][keep]).view(np.uint64)
+        counts = download(acc[1][keep])
+        if metrics is not None:
+            n_windows = max(buf.shape[0] - K + 1, 0)
+            metrics.end_batch(
+                bases_in=buf.shape[0],
+                windows_out=n_valid,
+                windows_skipped=n_windows - n_valid,
+                distinct_kmers=int(kmers.shape[0]),
+            )
+        return kmers, counts
 
 
 def _canonical_count_multiword(data, config: CountConfig, device):
@@ -199,8 +201,8 @@ def _canonical_count_multiword(data, config: CountConfig, device):
     )
     _check_bytes(n_invalid, n_ambig, config)
     keep = acc[1] > 0
-    words = acc[0][:, keep].cpu().numpy()
-    return words_to_ints(words), acc[1][keep].cpu().numpy()
+    words = download(acc[0][:, keep])
+    return words_to_ints(words), download(acc[1][keep])
 
 
 def bench_input(L: int = 1 << 26) -> np.ndarray:

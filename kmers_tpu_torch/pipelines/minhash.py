@@ -28,7 +28,8 @@ from ..ops.hashing import fx_hash_u64
 from ..ops.kernels.window_kernel import canonical_hashes
 from ..ops.windows import canonical_windows_from_codes, window_valid_mask
 from ..symbols import EncodeError
-from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device
+from ..utils.profiling import annotate
+from ._input import ALPHABET, as_byte_array, download, join_records_with_n, resolve_device, upload
 
 __all__ = [
     "minhash_sketch",
@@ -52,11 +53,15 @@ def _hash_keys(buf: torch.Tensor, K: int):
 def _smallest(keys: torch.Tensor, prefix: int, s: int):
     """The ``prefix`` smallest keys: their first ``s`` distinct real keys,
     sorted, as an int64 numpy array, and the largest selected key."""
-    if prefix < keys.shape[0]:
-        keys = torch.topk(keys, prefix, largest=False, sorted=False).values
-    distinct = torch.unique(keys)
-    head = distinct[distinct != SENTINEL][:s]
-    return head.cpu().numpy(), int(keys.max())
+    with annotate("kmers.select"):
+        if prefix < keys.shape[0]:
+            keys = torch.topk(keys, prefix, largest=False, sorted=False).values
+        distinct = torch.unique(keys)
+        head = distinct[distinct != SENTINEL][:s]
+    head = download(head)
+    with annotate("kmers.wait"):
+        boundary = int(keys.max())
+    return head, boundary
 
 
 def _sketch_keys(buf: torch.Tensor, K: int, s: int, skip_ambiguous: bool) -> np.ndarray:
@@ -68,7 +73,8 @@ def _sketch_keys(buf: torch.Tensor, K: int, s: int, skip_ambiguous: bool) -> np.
     ``skip_ambiguous`` is False."""
     n_windows = buf.shape[0] - K + 1
     keys, n_invalid, n_ambig = _hash_keys(buf, K)
-    n_invalid, n_ambig = torch.stack([n_invalid, n_ambig]).tolist()
+    with annotate("kmers.wait"):
+        n_invalid, n_ambig = torch.stack([n_invalid, n_ambig]).tolist()
     if n_invalid:
         raise EncodeError(ALPHABET, "<batch input>")
     if n_ambig and not skip_ambiguous:
@@ -93,12 +99,13 @@ def minhash_sketch(data, K: int = 16, s: int = 1000, skip_ambiguous: bool = True
     Invalid bytes always raise ``EncodeError``; ambiguous IUPAC codes are
     skipped when ``skip_ambiguous`` (the default) and raise otherwise.
     """
-    device = resolve_device(device)
-    arr = as_byte_array(data)
-    if arr.size < K:
-        return np.zeros(0, np.uint64)
-    buf = torch.tensor(arr, dtype=torch.uint8, device=device)
-    return _to_hashes(_sketch_keys(buf, K, s, skip_ambiguous))
+    with annotate("kmers.sketch"):
+        device = resolve_device(device)
+        arr = as_byte_array(data)
+        if arr.size < K:
+            return np.zeros(0, np.uint64)
+        buf = upload(arr, device)
+        return _to_hashes(_sketch_keys(buf, K, s, skip_ambiguous))
 
 
 class StreamingSketcher:
@@ -138,28 +145,29 @@ class StreamingSketcher:
         """Sketch one record batch.  ``offsets`` (int64 CSR record starts,
         as the fastx readers give) joins records with 'N', so that no window
         spans two records."""
-        if self._done:
-            raise RuntimeError("finalize() already called")
-        arr = as_byte_array(seq_bytes)
-        K = self.K
-        if offsets is not None:
-            # the windows inside each record (none spans an 'N' join)
-            lens = np.diff(np.asarray(offsets))
-            self._windows += int(np.maximum(lens - K + 1, 0).sum())
-            self._bases += int(lens.sum())
-            arr = join_records_with_n(arr, offsets)
-        else:
-            self._bases += arr.shape[0]
-            self._windows += max(arr.shape[0] - K + 1, 0)
-        L = arr.shape[0]
-        if L < K:
-            return
-        buf = torch.tensor(arr, dtype=torch.uint8, device=self.device)
-        # chunks overlap by K-1 bytes, so each window lies in one chunk
-        step = self.chunk_size - (K - 1)
-        for start in range(0, L - K + 1, step):
-            h = _to_hashes(_sketch_keys(buf[start : start + self.chunk_size], K, self.s, True))
-            self._sketch = np.unique(np.concatenate([self._sketch, h]))[: self.s]
+        with annotate("kmers.sketch"):
+            if self._done:
+                raise RuntimeError("finalize() already called")
+            arr = as_byte_array(seq_bytes)
+            K = self.K
+            if offsets is not None:
+                # the windows inside each record (none spans an 'N' join)
+                lens = np.diff(np.asarray(offsets))
+                self._windows += int(np.maximum(lens - K + 1, 0).sum())
+                self._bases += int(lens.sum())
+                arr = join_records_with_n(arr, offsets)
+            else:
+                self._bases += arr.shape[0]
+                self._windows += max(arr.shape[0] - K + 1, 0)
+            L = arr.shape[0]
+            if L < K:
+                return
+            buf = upload(arr, self.device)
+            # chunks overlap by K-1 bytes, so each window lies in one chunk
+            step = self.chunk_size - (K - 1)
+            for start in range(0, L - K + 1, step):
+                h = _to_hashes(_sketch_keys(buf[start : start + self.chunk_size], K, self.s, True))
+                self._sketch = np.unique(np.concatenate([self._sketch, h]))[: self.s]
 
     @property
     def bases_seen(self) -> int:

@@ -22,7 +22,8 @@ import numpy as np
 
 from ..ops.count import merge_compact_tables
 from ..symbols import EncodeError
-from ._input import ALPHABET, as_byte_array, join_records_with_n, resolve_device, upload
+from ..utils.profiling import annotate
+from ._input import ALPHABET, as_byte_array, download, join_records_with_n, resolve_device, upload
 from ._stream import level_stack, push_chunks
 from .canonical_count import CountConfig, _count_chunk
 
@@ -69,25 +70,26 @@ class StreamingCounter:
         record starts, as returned by the fastx readers) joins records
         with 'N' so windows never span records; without it the buffer is
         treated as a single record."""
-        if self._done:
-            raise RuntimeError("finalize() already called")
-        arr = as_byte_array(seq_bytes)
-        if offsets is not None:
-            arr = join_records_with_n(arr, offsets)
-        K = self.config.K
-        L = arr.shape[0]
-        self._bases += L
-        if L < K:
-            return
-        self._n_windows += L - K + 1
-        buf = upload(arr, self.device)
-        # the checked tallies: n_valid feeds finalize()'s conservation check
-        n_invalid, _n_ambig, n_valid, _n_counted = push_chunks(
-            buf, K, self.config.resolved_chunk_size,
-            lambda chunk: _count_chunk(chunk, K, True), self._stack,
-        )
-        self._n_invalid += n_invalid
-        self._n_valid += n_valid
+        with annotate("kmers.update"):
+            if self._done:
+                raise RuntimeError("finalize() already called")
+            arr = as_byte_array(seq_bytes)
+            if offsets is not None:
+                arr = join_records_with_n(arr, offsets)
+            K = self.config.K
+            L = arr.shape[0]
+            self._bases += L
+            if L < K:
+                return
+            self._n_windows += L - K + 1
+            buf = upload(arr, self.device)
+            # the checked tallies: n_valid feeds finalize()'s conservation check
+            n_invalid, _n_ambig, n_valid, _n_counted = push_chunks(
+                buf, K, self.config.resolved_chunk_size,
+                lambda chunk: _count_chunk(chunk, K, True), self._stack,
+            )
+            self._n_invalid += n_invalid
+            self._n_valid += n_valid
 
     @property
     def bases_seen(self) -> int:
@@ -100,31 +102,32 @@ class StreamingCounter:
         (non-IUPAC) byte was seen in any batch, and ``RuntimeError`` if
         window conservation fails: every valid window must be counted
         exactly once, so a mismatch means a kernel bug."""
-        self._done = True
-        if self._n_invalid:
-            raise EncodeError(ALPHABET, "<stream input>")
-        if not len(self._stack):
-            return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-        keys, counts = self._stack.fold()
-        # mask on the device, so only real rows cross to the host; real keys
-        # are non-negative, so their int64 bits are the uint64 values
-        keep = counts > 0
-        kmers = keys[keep].cpu().numpy().view(np.uint64)
-        counts = counts[keep].cpu().numpy()
-        counted = int(counts.sum())
-        if counted != self._n_valid:
-            raise RuntimeError(
-                f"window conservation violated: {self._n_valid} valid "
-                f"windows seen but {counted} counted — a kernel bug"
-            )
-        if self.metrics is not None:
-            self.metrics.end_batch(
-                bases_in=self._bases,
-                windows_out=counted,
-                windows_skipped=self._n_windows - counted,
-                distinct_kmers=int(kmers.shape[0]),
-            )
-        return kmers, counts
+        with annotate("kmers.finalize"):
+            self._done = True
+            if self._n_invalid:
+                raise EncodeError(ALPHABET, "<stream input>")
+            if not len(self._stack):
+                return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+            keys, counts = self._stack.fold()
+            # mask on the device, so only real rows cross to the host; real keys
+            # are non-negative, so their int64 bits are the uint64 values
+            keep = counts > 0
+            kmers = download(keys[keep]).view(np.uint64)
+            counts = download(counts[keep])
+            counted = int(counts.sum())
+            if counted != self._n_valid:
+                raise RuntimeError(
+                    f"window conservation violated: {self._n_valid} valid "
+                    f"windows seen but {counted} counted — a kernel bug"
+                )
+            if self.metrics is not None:
+                self.metrics.end_batch(
+                    bases_in=self._bases,
+                    windows_out=counted,
+                    windows_skipped=self._n_windows - counted,
+                    distinct_kmers=int(kmers.shape[0]),
+                )
+            return kmers, counts
 
 
 def count_fastx_stream(
@@ -139,7 +142,8 @@ def count_fastx_stream(
     """
     from ..io import stream_fastx
 
-    sc = StreamingCounter(config, metrics=metrics, device=device)
-    for seq, off in stream_fastx(path, batch_bytes=batch_bytes):
-        sc.update(seq, off)
-    return sc.finalize()
+    with annotate("kmers.count_fastx"):
+        sc = StreamingCounter(config, metrics=metrics, device=device)
+        for seq, off in stream_fastx(path, batch_bytes=batch_bytes):
+            sc.update(seq, off)
+        return sc.finalize()

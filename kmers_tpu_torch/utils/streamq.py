@@ -15,6 +15,8 @@ from collections import deque
 
 import torch
 
+from .profiling import annotate
+
 __all__ = ["DrainQueue", "DEPTH"]
 
 #: chunk outputs kept in flight before the oldest is drained
@@ -25,7 +27,8 @@ class DrainQueue:
     """``push(out, scalars)`` enqueues one chunk's output and prefetches its
     1-D int64 ``scalars``; when more than :data:`DEPTH` outputs are in flight
     the oldest is passed to ``drain_fn(out, values)`` with ``values`` the
-    scalars as a list of Python ints.  ``flush()`` drains the rest in order."""
+    scalars as a list of Python ints (span ``kmers.wait`` the read).
+    ``flush()`` drains the rest in order."""
 
     def __init__(self, drain_fn):
         self._drain = drain_fn
@@ -45,9 +48,11 @@ class DrainQueue:
 
     def _drain_oldest(self) -> None:
         out, scalars, ready = self._pending.popleft()
-        if ready is not None:
-            ready.synchronize()
-        self._drain(out, scalars.tolist())
+        with annotate("kmers.wait"):
+            if ready is not None:
+                ready.synchronize()
+            values = scalars.tolist()
+        self._drain(out, values)
 
     def flush(self) -> None:
         while self._pending:

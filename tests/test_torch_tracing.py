@@ -1,0 +1,183 @@
+"""The port's spans and counters (``kmers_tpu_torch/utils/profiling.py``)
+on the CPU: each public call of the count, stream, sketch and sharded paths
+records its ``kmers.*`` spans, nested under the call's root span, while a
+torch profiler records; its counters count the bytes and rows moved; and
+with no profiler running neither a span nor a counter is touched."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from kmers_tpu_torch import (
+    CountConfig, StreamingSketcher, canonical_count_bytes, count_fastx_stream, minhash_sketch,
+)
+from kmers_tpu_torch import parallel as par
+from kmers_tpu_torch.io import stream_fastx
+from kmers_tpu_torch.parallel.pipeline import _shard_with_halo
+from kmers_tpu_torch.utils import profiling
+from kmers_tpu_torch.utils.profiling import count, counters, reset_counters
+
+K = 15
+#: 3 chunks of 1000 bases overlapping by K - 1
+DATA = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(0).integers(0, 4, 2500)]
+CC = CountConfig(K=K, chunk_size=1000)
+
+
+def _traced(fn):
+    """``(fn(), spans, counters)`` under a CPU profiler: ``spans`` are
+    ``(name, parent, start, end)`` of the ``kmers.*`` host events in start
+    order, ``parent`` the innermost ``kmers.*`` span around each (None for
+    a root)."""
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    events = sorted(
+        ((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+         for e in prof.profiler.kineto_results.events() if e.name().startswith("kmers.")),
+        key=lambda x: (x[1], -x[2]),
+    )
+    spans, stack = [], []
+    for name, s, e in events:
+        while stack and stack[-1][2] < e:
+            stack.pop()
+        spans.append((name, stack[-1][0] if stack else None, s, e))
+        stack.append((name, s, e))
+    return out, spans, counters()
+
+
+def _children(spans, parent):
+    return [n for n, p, _, _ in spans if p == parent]
+
+
+def test_count_bytes_records_its_layers_under_one_root():
+    (kmers, _), spans, totals = _traced(lambda: canonical_count_bytes(DATA, CC, device="cpu"))
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.count_bytes"]
+    kids = _children(spans, "kmers.count_bytes")
+    assert kids.count("kmers.upload") == 1 and kids.count("kmers.chunk") == 3
+    assert kids.count("kmers.fold") == 2 and kids.count("kmers.download") == 2
+    # each fold holds its distinct count's read; the drain queue reads once a chunk
+    assert _children(spans, "kmers.fold") == ["kmers.wait", "kmers.wait"]
+    assert kids.count("kmers.wait") == 3
+    assert totals == {"upload_bytes": DATA.size, "download_bytes": kmers.size * 16}
+
+
+def test_count_bytes_one_chunk_and_multiword_routes():
+    (_, _), spans, _ = _traced(lambda: canonical_count_bytes(DATA[:900], CC, device="cpu"))
+    assert _children(spans, "kmers.count_bytes") == [
+        "kmers.upload", "kmers.chunk", "kmers.wait", "kmers.download", "kmers.download"]
+    (kmers, _), spans, totals = _traced(
+        lambda: canonical_count_bytes(DATA, CountConfig(K=40, chunk_size=1000), device="cpu"))
+    kids = _children(spans, "kmers.count_bytes")
+    assert kids.count("kmers.chunk") == 3 and kids.count("kmers.fold") == 2
+    # two int64 words a 40-mer and a count
+    assert totals == {"upload_bytes": DATA.size, "download_bytes": kmers.size * 24}
+
+
+def _fastq(path, n_reads=300, read_len=60):
+    rng = np.random.default_rng(1)
+    reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n_reads, read_len))]
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(), b"I" * read_len))
+    return path
+
+
+def test_fastx_stream_parses_each_batch_before_its_update(tmp_path):
+    path = _fastq(tmp_path / "reads.fq")
+    batch = 4096
+    n_batches = sum(1 for _ in stream_fastx(path, batch_bytes=batch))
+    assert n_batches >= 3
+    (kmers, _), spans, totals = _traced(
+        lambda: count_fastx_stream(path, CountConfig(K=K, chunk_size=2048), batch_bytes=batch, device="cpu"))
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.count_fastx"]
+    kids = [(n, s, e) for n, p, s, e in spans if p == "kmers.count_fastx"]
+    names = [n for n, _, _ in kids]
+    assert names == ["kmers.parse", "kmers.update"] * n_batches + ["kmers.parse", "kmers.finalize"]
+    # each batch's parse span closes before the consumer's update opens
+    for (_, _, parse_end), (_, update_start, _) in zip(kids[::2], kids[1::2]):
+        assert parse_end <= update_start
+    assert _children(spans, "kmers.update").count("kmers.join") == n_batches
+    assert totals["download_bytes"] == kmers.size * 16
+
+
+def test_sketch_records_select_and_its_waits():
+    data = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(2).integers(0, 4, 20_000)]
+    sketch, spans, totals = _traced(lambda: minhash_sketch(data, K=21, s=100, device="cpu"))
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.sketch"]
+    assert _children(spans, "kmers.sketch") == [
+        "kmers.upload", "kmers.wait", "kmers.select", "kmers.download", "kmers.wait"]
+    assert totals == {"upload_bytes": data.size, "download_bytes": sketch.size * 8}
+
+
+def test_streaming_sketcher_update_is_a_root_span():
+    data = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(3).integers(0, 4, 5_000)]
+    sketcher = StreamingSketcher(K=21, s=50, chunk_size=2_000, device="cpu")
+    _, spans, totals = _traced(lambda: sketcher.update(data))
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.sketch"]
+    assert _children(spans, "kmers.sketch").count("kmers.select") == 3
+    assert totals["upload_bytes"] == data.size
+
+
+@pytest.mark.parametrize("chunk_size", [1 << 20, 1000], ids=["one-chunk", "streamed"])
+def test_sharded_count_records_the_exchange_and_its_rows(chunk_size):
+    mesh = par.data_mesh(2, device="cpu")
+    cfg = par.ShardedCountConfig(K=K, chunk_size=chunk_size)
+    (kmers, _), spans, totals = _traced(lambda: par.sharded_canonical_count(DATA, cfg, mesh))
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.sharded_count"]
+    kids = _children(spans, "kmers.sharded_count")
+    assert kids.count("kmers.exchange") == 1 and kids.count("kmers.gather") == 1
+    assert kids[0] == "kmers.upload" and kids[-2:] == ["kmers.download", "kmers.download"]
+    # the mesh's overflow reduction is a blocking read inside the exchange
+    assert _children(spans, "kmers.exchange") == ["kmers.wait"]
+    # the real rows routed: every rank's local table, slab and halo
+    slabs, shard = _shard_with_halo(DATA, 2, K, pad_byte=ord("N"))
+    local = [canonical_count_bytes(slab, CountConfig(K=K), device="cpu")[0].size for slab in slabs]
+    assert totals["exchange_rows_real"] == sum(local)
+    if chunk_size > shard:
+        cap = math.ceil(shard * cfg.bucket_factor / 2)
+        assert totals["exchange_rows"] == 2 * 2 * cap
+    assert totals["upload_bytes"] == slabs.nbytes
+    assert totals["download_bytes"] == kmers.size * 16
+
+
+def _no_record_function(name):
+    raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+
+def test_nothing_is_recorded_without_a_profiler(monkeypatch, tmp_path):
+    reset_counters()
+    monkeypatch.setattr(profiling, "record_function", _no_record_function)
+    canonical_count_bytes(DATA, CC, device="cpu")
+    count_fastx_stream(_fastq(tmp_path / "reads.fq"), CC, batch_bytes=4096, device="cpu")
+    minhash_sketch(DATA, K=K, s=20, device="cpu")
+    par.sharded_canonical_count(DATA, par.ShardedCountConfig(K=K, chunk_size=1000), par.data_mesh(2, device="cpu"))
+    assert counters() == {}
+
+
+def test_a_lazy_counter_value_is_computed_only_while_recording():
+    reset_counters()
+    count("rows", lambda: pytest.fail("computed with no profiler running"))
+    assert counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        count("rows", lambda: torch.tensor(3))
+        count("rows", torch.tensor(4))
+        count("rows", 5)
+    assert counters() == {"rows": 12}
+    reset_counters()
+    assert counters() == {}
+
+
+def test_the_gate_is_the_profilers_own_state():
+    # a private torch function: if an upgrade moves it, the spans must not
+    # silently turn off
+    gate = torch._C._autograd._profiler_enabled
+    assert profiling._profiler_enabled is gate
+    assert gate() is False
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert gate() is True
+    with torch.autograd.profiler.profile():
+        assert gate() is True
+    assert gate() is False
