@@ -13,6 +13,9 @@ from ..utils.profiling import annotate, count
 #: the alphabet the pipelines' ``EncodeError`` carries, as in the reference
 ALPHABET = DNAAlphabet2()
 
+#: the smallest result :func:`download` pins: below ~1 MiB a copy costs its latency, not its bytes
+PINNED_MIN_BYTES = 1 << 20
+
 
 def as_byte_array(data) -> np.ndarray:
     if isinstance(data, str):
@@ -46,11 +49,34 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def download(t: torch.Tensor) -> np.ndarray:
     """A device tensor as a numpy array (one copy): span
-    ``kmers.download``, counter ``download_bytes``."""
+    ``kmers.download``, counter ``download_bytes``.
+
+    A CUDA tensor of at least :data:`PINNED_MIN_BYTES` is copied into
+    pinned host memory from torch's caching host allocator (counter
+    ``download_pinned_bytes``), so the copy runs at the DMA rate and a
+    block freed by an earlier result is reused; the array keeps that
+    block until it is freed, then the block returns to the cache.  Smaller
+    results, CPU tensors and a pinned allocation that fails take
+    ``t.cpu()``."""
     with annotate("kmers.download"):
-        arr = t.cpu().numpy()
+        arr = _download_pinned(t) if t.is_cuda and t.nbytes >= PINNED_MIN_BYTES else None
+        if arr is None:
+            arr = t.cpu().numpy()
         count("download_bytes", arr.nbytes)
     return arr
+
+
+def _download_pinned(t: torch.Tensor) -> np.ndarray | None:
+    """``t`` copied into a pinned host tensor (the copy waits for the
+    stream, so the values are complete), as numpy; None if the pinned
+    allocation fails."""
+    try:
+        host = torch.empty_like(t, device="cpu", pin_memory=True)
+    except RuntimeError:  # too large to pin on this host: the pageable copy
+        return None
+    host.copy_(t)
+    count("download_pinned_bytes", host.nbytes)
+    return host.numpy()
 
 
 def join_records_with_n(seq_bytes, offsets) -> np.ndarray:
