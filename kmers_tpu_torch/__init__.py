@@ -139,6 +139,7 @@ from .pipelines import (
     canonical_count,
     canonical_count_bytes,
     canonical_count_records,
+    canonical_count_words,
     composition_vector,
     containment,
     count_fastx_stream,
@@ -262,6 +263,7 @@ __all__ = [
     "canonical_count",
     "canonical_count_bytes",
     "canonical_count_records",
+    "canonical_count_words",
     "composition_vector",
     "counts_lookup",
     "counts_to_dict",

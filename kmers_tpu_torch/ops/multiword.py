@@ -16,9 +16,10 @@ one-word machinery counts them: kernel K2 (``rle_unit``) for a chunk and
 the weighted ``_run_length_encode`` of ``ops/count.py`` for a merge.
 ``ops/count.py::compact_counts`` (kernel K10) front-packs word tables as
 well, every word plane with its column.  Word tables merge by this sort,
-not by kernel K9, whose keys are one word.  :func:`fx_hash_mw` is the JAX
-package's FxHash of multi-limb registers, which routes word tables in the
-sharded exchange (``parallel/multiword.py``).
+not by kernel K9, whose keys are one word, so a fold re-sorts each row at
+every level it climbs (counter ``mw_sort_rows``).  :func:`fx_hash_mw` is
+the JAX package's FxHash of multi-limb registers, which routes word tables
+in the sharded exchange (``parallel/multiword.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..convert import KEY_BITS_MAX, SENTINEL, SIGN_BIT, WORD_BASES, n_words
+from ..utils.profiling import count
 from .count import _run_length_encode, compact_counts
 from .encode import classify_2bit
 from .hashing import FX_CONSTANT, _rotl5
@@ -157,7 +159,10 @@ def canonical_windows_mw_bytes(bytes_u8: torch.Tensor, K: int):
 
 def _lex_order(words: torch.Tensor) -> torch.Tensor:
     """The permutation that sorts the columns of ``(W, n)`` words
-    lexicographically: W stable sorts, least significant word first."""
+    lexicographically: W stable sorts, least significant word first.
+    Counter ``mw_sort_rows``: the columns ordered (every chunk's sort and
+    every word merge's re-sort)."""
+    count("mw_sort_rows", words.shape[1])
     order = None
     for w in reversed(range(words.shape[0])):
         key = words[w] if order is None else words[w][order]

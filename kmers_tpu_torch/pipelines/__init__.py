@@ -9,6 +9,7 @@ from .canonical_count import (
     canonical_count,
     canonical_count_bytes,
     canonical_count_records,
+    canonical_count_words,
     composition_vector,
     counts_lookup,
     counts_to_dict,
@@ -33,6 +34,7 @@ __all__ = [
     "canonical_count",
     "canonical_count_bytes",
     "canonical_count_records",
+    "canonical_count_words",
     "composition_vector",
     "counts_lookup",
     "counts_to_dict",

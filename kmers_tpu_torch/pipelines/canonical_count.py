@@ -11,12 +11,15 @@ switch.
 - K <= 31: one int64 register per window.  A chunk runs K1
   (``canonical_windows``: bytes -> canonical registers and byte error
   counts) and ``sort_count`` (``torch.sort``, then K2 ``rle_unit``).
-- K > 31 (``_canonical_count_multiword``): registers of ``ceil(K / 31)``
+- K > 31 (``_count_words``): registers of ``ceil(K / 31)``
   int64 words (``convert.py``).  For 32 <= K <= 63 a chunk runs K3
   (``canonical_words``); for 64 <= K <= 100 its windows are plain torch
   on every device, as the reference computes them with jnp (there is no
   TPU kernel there).  Then ``sort_count_mw``: a lexicographic
   ``torch.sort`` of the words and K2 over their run ids.
+  :func:`canonical_count_words` returns such a table as packed words, an
+  ``(n, W)`` ``np.uint64`` array; :func:`canonical_count_bytes` boxes
+  those rows into Python ints (span ``kmers.words``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..alphabets import DNAAlphabet2
-from ..convert import SENTINEL, words_to_ints
+from ..convert import SENTINEL, n_words, words_to_ints
 from ..kmer import Kmer
 from ..ops.count import merge_compact_tables, sort_count
 from ..ops.kernels.multiword_kernel import K_MAX as K3_MAX
@@ -46,6 +49,7 @@ __all__ = [
     "CountConfig",
     "canonical_count",
     "canonical_count_bytes",
+    "canonical_count_words",
     "canonical_count_records",
     "join_records_with_n",
     "composition_vector",
@@ -140,7 +144,8 @@ def canonical_count_bytes(
     Returns ``(kmers, counts)`` as the JAX package returns them: for
     K <= 31, ``kmers`` is a sorted ``np.uint64`` array of canonical
     register values; for K > 31 a sorted object array of Python-int
-    registers; ``counts`` is ``np.int64``.  Invalid bytes raise
+    registers (the rows of :func:`canonical_count_words`, boxed);
+    ``counts`` is ``np.int64``.  Invalid bytes raise
     EncodeError, and so do ambiguous bases under ``skip_ambiguous=False``.
     ``metrics``: an optional :class:`~kmers_tpu_torch.utils.Metrics` that
     records one batch (K <= 31 only, as in the reference).
@@ -148,7 +153,9 @@ def canonical_count_bytes(
     with annotate("kmers.count_bytes"):
         device = resolve_device(device)
         if config.K > 31:
-            return _canonical_count_multiword(data, config, device)
+            words, counts = _count_words(data, config, device)
+            with annotate("kmers.words"):
+                return words_to_ints(words.T), counts
         if metrics is not None:
             metrics.start_batch()
         K = config.K
@@ -187,22 +194,45 @@ def canonical_count_bytes(
         return kmers, counts
 
 
-def _canonical_count_multiword(data, config: CountConfig, device):
+def canonical_count_words(data, config: CountConfig, device="cuda"):
+    """Count canonical K-mers (31 < K <= 100) of an ASCII nucleotide buffer
+    on ``device`` and return the table as packed words.
+
+    Returns ``(words, counts)``: ``words`` a C-contiguous ``(n, W)``
+    ``np.uint64`` array, ``W = ceil(K / 31)``, each row one register in the
+    convention of ``convert.py`` (62-bit words, word 0 the most
+    significant), rows in ascending order of the registers; ``counts``
+    ``np.int64``.  The same chunk stream and fold as
+    :func:`canonical_count_bytes`, which boxes these rows into Python ints;
+    errors as there.
+    """
+    if config.K <= 31:
+        raise ValueError(
+            f"canonical_count_words takes K > 31 (got K={config.K}); "
+            "use canonical_count_bytes"
+        )
+    with annotate("kmers.count_bytes"):
+        return _count_words(data, config, resolve_device(device))
+
+
+def _count_words(data, config: CountConfig, device):
     """K > 31: multi-word registers, the same chunk stream as K <= 31.
     As in the reference, no metrics batch is recorded and checked mode
     adds no conservation check at these K."""
     K = config.K
     up = _upload(data, config, device)
     if up is None:
-        return np.zeros(0, object), np.zeros(0, np.int64)
+        return np.zeros((0, n_words(K)), np.uint64), np.zeros(0, np.int64)
     buf, chunk_size = up
     acc, (n_invalid, n_ambig) = count_stream(
         buf, K, chunk_size, lambda c: _count_chunk_mw(c, K), merge_compact_tables_mw
     )
     _check_bytes(n_invalid, n_ambig, config)
     keep = acc[1] > 0
-    words = download(acc[0][:, keep])
-    return words_to_ints(words), download(acc[1][keep])
+    # rows made on the device, so the host copies the table once; real
+    # words are non-negative, so their int64 bits are the uint64 values
+    words = download(acc[0][:, keep].T.contiguous()).view(np.uint64)
+    return words, download(acc[1][keep])
 
 
 def bench_input(L: int = 1 << 26) -> np.ndarray:
