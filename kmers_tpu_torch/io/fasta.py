@@ -38,22 +38,34 @@ def native_available() -> bool:
     return native.library() is not None
 
 
-def _scan_native(buf: np.ndarray):
+#: ``fastx_scan``'s cut rules: all of the buffer, or a streamed batch's
+#: complete records (cut before its last FASTA header, or after its last
+#: complete group of four FASTQ lines)
+_WHOLE, _CUT_FASTA, _CUT_FASTQ = 0, 1, 2
+_NO_MEMORY = -2
+
+
+def _scan_native(buf: np.ndarray, cut_rule: int = _WHOLE):
+    """``(seq, offsets), cut``: the records of ``buf[:cut]`` in one native
+    pass; ``cut`` is ``buf.size`` under ``_WHOLE``.  ``seq`` is a view of
+    a ``buf.size`` array whose pages past the records are never touched."""
     lib = native.library()
-    n_rec = lib.fastx_count_records(_ptr(buf, ctypes.c_uint8), buf.size)
-    if n_rec < 0:
-        raise ValueError("malformed FASTA/FASTQ input")
     seq = np.empty(buf.size, dtype=np.uint8)
-    offsets = np.empty(n_rec + 1, dtype=np.int64)
-    out_n = ctypes.c_int64()
-    out_len = ctypes.c_int64()
+    starts = ctypes.POINTER(ctypes.c_int64)()
+    n_rec, seq_len, cut = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
     rc = lib.fastx_scan(
-        _ptr(buf, ctypes.c_uint8), buf.size, _ptr(seq, ctypes.c_uint8),
-        _ptr(offsets, ctypes.c_int64), ctypes.byref(out_n), ctypes.byref(out_len),
+        _ptr(buf, ctypes.c_uint8), buf.size, cut_rule, _ptr(seq, ctypes.c_uint8),
+        ctypes.byref(starts), ctypes.byref(n_rec), ctypes.byref(seq_len), ctypes.byref(cut),
     )
-    if rc != 0:
-        raise ValueError("malformed FASTA/FASTQ input")
-    return seq[: out_len.value].copy(), offsets[: out_n.value + 1]
+    try:
+        if rc == _NO_MEMORY:
+            raise MemoryError("no memory for the record offsets")
+        if rc != 0:
+            raise ValueError("malformed FASTA/FASTQ input")
+        offsets = np.ctypeslib.as_array(starts, (n_rec.value + 1,)).copy()
+    finally:
+        lib.fastx_free(starts)
+    return (seq[: seq_len.value], offsets), cut.value
 
 
 def _scan_python(buf: np.ndarray):
@@ -114,7 +126,7 @@ def read_fastx_bytes(data, use_native: bool | None = None):
         buf = np.asarray(data, dtype=np.uint8)
     use = native_available() if use_native is None else use_native
     if use:
-        return _scan_native(np.ascontiguousarray(buf))
+        return _scan_native(np.ascontiguousarray(buf))[0]
     return _scan_python(buf)
 
 
@@ -153,6 +165,24 @@ def merge_count_tables_native(k1, c1, k2, c2):
     return uniq, summed
 
 
+def join_records_native(seq: np.ndarray, offsets: np.ndarray) -> np.ndarray | None:
+    """``seq``'s CSR records joined with one ``N`` between records by the
+    native join (a ``memcpy`` a record); ``None`` when the library is not
+    built or the offsets are not CSR (integers, non-decreasing, within
+    ``seq``), which the caller's Python loop then handles."""
+    lib = native.library()
+    if lib is None or offsets.ndim != 1 or offsets.dtype.kind not in "iu":
+        return None
+    seq = np.ascontiguousarray(seq, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n_rec = offsets.size - 1
+    out = np.empty(seq.size + n_rec - 1, dtype=np.uint8)
+    rc = lib.fastx_join_n(
+        _ptr(seq, ctypes.c_uint8), seq.size, _ptr(offsets, ctypes.c_int64), n_rec, _ptr(out, ctypes.c_uint8),
+    )
+    return out if rc == 0 else None
+
+
 def stream_fastx(path, batch_bytes: int = 1 << 26):
     """Stream a FASTA/FASTQ file as ``(seq_bytes, record_offsets)`` batches.
 
@@ -175,7 +205,8 @@ def stream_fastx(path, batch_bytes: int = 1 << 26):
 
 def _fastx_cut(buf: bytes, is_fastq: bool) -> int:
     """Byte index where the trailing (possibly partial) record starts;
-    everything before it is complete records."""
+    everything before it is complete records (the Python route's cut; the
+    native scanner finds the same cut in its pass)."""
     if is_fastq:
         # standard 4-line records: cut after the last full group of 4
         # lines, which is n_lines % 4 + 1 newlines back from the end (one
@@ -191,30 +222,59 @@ def _fastx_cut(buf: bytes, is_fastq: bool) -> int:
     return cut + 1 if cut != -1 else 0
 
 
+def _scan_batch(buf: np.ndarray, is_fastq: bool):
+    """``(records or None, cut)``: the complete records of a streamed
+    batch, parsed as :func:`read_fastx_bytes` parses ``buf[:cut]``."""
+    if native_available():
+        records, cut = _scan_native(buf, _CUT_FASTQ if is_fastq else _CUT_FASTA)
+        return (records if cut else None), cut
+    data = buf.tobytes()
+    cut = _fastx_cut(data, is_fastq)
+    return (_scan_python(buf[:cut]) if cut else None), cut
+
+
+def _read_block(f, out: np.ndarray) -> int:
+    """Fill ``out`` from ``f``, as ``f.read(out.size)`` would; the bytes read."""
+    view = memoryview(out)
+    got = 0
+    while got < out.size:
+        n = f.readinto(view[got:])
+        if not n:
+            break
+        got += n
+    return got
+
+
 def _stream_fastx_file(f, batch_bytes: int):
     """Each batch's read and scan runs in the span ``kmers.parse``, closed
-    before the batch is yielded."""
-    carry = b""
+    before the batch is yielded.  A block is read into one reused buffer,
+    behind the tail that the last batch carried (its partial record)."""
+    buf = np.empty(batch_bytes, np.uint8)
+    n_carry = 0
     is_fastq = None
     while True:
         with annotate("kmers.parse"):
-            block = f.read(batch_bytes)
-            if not block:
+            if buf.size < n_carry + batch_bytes:
+                grown = np.empty(n_carry + batch_bytes, np.uint8)
+                grown[:n_carry] = buf[:n_carry]
+                buf = grown
+            n = n_carry + _read_block(f, buf[n_carry : n_carry + batch_bytes])
+            if n == n_carry:
                 break
-            buf = carry + block
             if is_fastq is None:
-                if buf[:1] == b"@":
+                if buf[0] == ord("@"):
                     is_fastq = True
-                elif buf[:1] == b">":
+                elif buf[0] == ord(">"):
                     is_fastq = False
                 else:
                     raise ValueError("malformed FASTA/FASTQ input")
-            cut = _fastx_cut(buf, is_fastq)
-            emit, carry = buf[:cut], buf[cut:]
-            records = read_fastx_bytes(emit) if emit else None
+            records, cut = _scan_batch(buf[:n], is_fastq)
+            n_carry = n - cut
+            if cut:
+                buf[:n_carry] = buf[cut:n]
         if records is not None:
             yield records
-    if carry:
+    if n_carry:
         with annotate("kmers.parse"):
-            records = read_fastx_bytes(carry)
+            records = read_fastx_bytes(buf[:n_carry])
         yield records

@@ -1,4 +1,4 @@
-"""Build and load the native FASTA/FASTQ scanner (``fastx.cpp``).
+"""Build and load the native FASTA/FASTQ scanner and N-join (``fastx.cpp``).
 
 ``g++ -O3 -shared -fPIC`` compiles ``fastx.cpp`` at first use into
 ``kmers_tpu_torch/_build/``, under a name that carries a hash of the source
@@ -34,10 +34,12 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     u8, i64, u64 = (ctypes.POINTER(t) for t in (ctypes.c_uint8, ctypes.c_int64, ctypes.c_uint64))
-    lib.fastx_count_records.restype = ctypes.c_int64
-    lib.fastx_count_records.argtypes = [u8, ctypes.c_int64]
     lib.fastx_scan.restype = ctypes.c_int
-    lib.fastx_scan.argtypes = [u8, ctypes.c_int64, u8, i64, i64, i64]
+    lib.fastx_scan.argtypes = [u8, ctypes.c_int64, ctypes.c_int, u8, ctypes.POINTER(i64), i64, i64, i64]
+    lib.fastx_free.restype = None
+    lib.fastx_free.argtypes = [i64]
+    lib.fastx_join_n.restype = ctypes.c_int
+    lib.fastx_join_n.argtypes = [u8, ctypes.c_int64, i64, ctypes.c_int64, u8]
     lib.merge_count_tables.restype = ctypes.c_int64
     lib.merge_count_tables.argtypes = [u64, i64, ctypes.c_int64, u64, i64, ctypes.c_int64, u64, i64]
     return lib

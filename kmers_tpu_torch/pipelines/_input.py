@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..alphabets import DNAAlphabet2
+from ..io.fasta import join_records_native
 from ..utils.profiling import annotate, count
 
 #: the alphabet the pipelines' ``EncodeError`` carries, as in the reference
@@ -81,13 +82,21 @@ def _download_pinned(t: torch.Tensor) -> np.ndarray | None:
 
 def join_records_with_n(seq_bytes, offsets) -> np.ndarray:
     """Join CSR records with single ``N`` separators, so that no window
-    spans two records in a skip-ambiguous pipeline (span ``kmers.join``)."""
+    spans two records in a skip-ambiguous pipeline (span ``kmers.join``).
+
+    The native join places the records (counter ``join_native_records``);
+    without the native library, or for offsets that are not CSR, a Python
+    loop does."""
     with annotate("kmers.join"):
         offsets = np.asarray(offsets)
         seq = np.asarray(seq_bytes, dtype=np.uint8)
         n_rec = offsets.shape[0] - 1
         if n_rec <= 1:
             return seq
+        joined = join_records_native(seq, offsets)
+        if joined is not None:
+            count("join_native_records", n_rec)
+            return joined
         joined = np.full(seq.shape[0] + n_rec - 1, ord("N"), dtype=np.uint8)
         pos = 0
         for i in range(n_rec):

@@ -15,7 +15,7 @@ from kmers_tpu_torch import (
     CountConfig, StreamingSketcher, canonical_count_bytes, count_fastx_stream, minhash_sketch,
 )
 from kmers_tpu_torch import parallel as par
-from kmers_tpu_torch.io import stream_fastx
+from kmers_tpu_torch.io import native, stream_fastx
 from kmers_tpu_torch.parallel.pipeline import _shard_with_halo
 from kmers_tpu_torch.utils import profiling
 from kmers_tpu_torch.utils.profiling import count, counters, reset_counters
@@ -107,6 +107,18 @@ def test_fastx_stream_parses_each_batch_before_its_update(tmp_path):
         assert parse_end <= update_start
     assert _children(spans, "kmers.update").count("kmers.join") == n_batches
     assert totals["download_bytes"] == kmers.size * 16
+
+
+@pytest.mark.parametrize("native_built", [True, False])
+def test_join_native_records_counts_the_records_the_native_join_placed(tmp_path, monkeypatch, native_built):
+    path = _fastq(tmp_path / "reads.fq")
+    n_records = [off.size - 1 for _, off in stream_fastx(path, batch_bytes=4096)]
+    assert len(n_records) >= 3 and min(n_records) > 1
+    if not native_built:
+        monkeypatch.setattr(native, "library", lambda: None)
+    _, _, totals = _traced(
+        lambda: count_fastx_stream(path, CountConfig(K=K, chunk_size=2048), batch_bytes=4096, device="cpu"))
+    assert totals.get("join_native_records", 0) == (sum(n_records) if native_built else 0)
 
 
 def test_sketch_records_select_and_its_waits():
