@@ -16,8 +16,7 @@ own copies of what it needs (the scalar plane, ``io``).
   ``UnambiguousKmers``, ``SpacedKmers`` and their shorthands,
   ``each_codon``), the function API (``translate`` to ``from_integer``),
   the NCBI genetic codes, reverse translation and random k-mers.  Bit-exact
-  with the reference; the oracle of the device plane (``chip_smoke.py``
-  holds the kernels' paths against it on the card).
+  with the reference.
 - ``convert``: the register convention (``ceil(K / 31)`` int64 words of 62
   bits per register, ``INT64_MAX`` sentinel, int64 counts), the hash-key
   convention (FxHash with the sign bit flipped, so signed order is unsigned

@@ -33,7 +33,7 @@
 //   62 and 124 are fixed shifts) get one 8-byte store a position each,
 //   coalesced.
 // The byte reads, the counters and the natural output order are K1's.  On
-// an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md section 6): 4.38 us at
+// an H100 80GB HBM3 at 700 W (PERF.md section 6): 4.38 us at
 // 2^19 positions at K = 47 (61 % of the bound) and 5.31 us at K = 63
 // (74 % of its 3.91 us); 32 registers, no spills.
 #include "common.cuh"

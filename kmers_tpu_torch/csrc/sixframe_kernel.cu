@@ -47,7 +47,7 @@
 // - Store: a warp writes 32 consecutive anchors of each of the 2W planes
 //   (256 bytes, coalesced).  The emitted windows are reduced in the block and
 //   added with one atomicAdd a block.
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md section 6): K4 9.3 us
+// On an H100 80GB HBM3 at 700 W (PERF.md section 6): K4 9.3 us
 // at 2^20 bytes at K = 1 and 7 (57 % of the bound: 2^20 bytes are one wave
 // of 1024 blocks, whose load, pack and codon phases come before any store),
 // K5 12.2 us at K = 15 and 30.0 us at K = 32 (85 %); 31-32 registers, no

@@ -35,7 +35,7 @@
 //   swap_bit_pairs(brev(x)) >> (64 - 2K): one bit reversal, as before.
 // - Store: one 8-byte store a position, 256 bytes a warp, coalesced; the
 //   hash is one unsigned 64-bit multiply.
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md section 6): 5.15 us
+// On an H100 80GB HBM3 at 700 W (PERF.md section 6): 5.15 us
 // at 2^20 positions at K = 15 and at K = 31 (55 % of the bound: one wave of
 // 1024 blocks), 240 us at 2^26 (75 %) and 180 us in hash mode at 48.1 M
 // (72 %); 31 registers, no spills.

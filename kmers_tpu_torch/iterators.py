@@ -5,7 +5,7 @@ its own copy and imports nothing of the JAX package).  Mirrors Kmers.jl's
 src/iterators/ (FwKmers, FwRvIterator, CanonicalKmers, UnambiguousKmers,
 SpacedKmers).  Each iterator rolls a kmer one symbol at a time (O(1) work
 per output, never re-extracting), like the reference's ``shift_encoding``
-loops; ``chip_smoke.py`` holds the device path against them.
+loops.
 
 Differences from the reference (API decisions of the JAX package):
 - positions are 0-based (the reference is 1-based Julia);

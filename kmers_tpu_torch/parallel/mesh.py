@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.profiling import annotate, count
+from ..pipelines._input import upload
+from ..utils.profiling import annotate
 
 __all__ = ["Mesh", "data_mesh"]
 
@@ -73,14 +74,11 @@ class Mesh:
 
     def put(self, rows: np.ndarray) -> list:
         """Each local rank's row of the host array ``rows`` (one row a rank
-        of the whole mesh), uploaded to that rank's device (span
-        ``kmers.upload``, counter ``upload_bytes``)."""
+        of the whole mesh), uploaded to that rank's device (one
+        ``pipelines._input.upload`` a local rank)."""
         if rows.shape[0] != self.size:
             raise ValueError(f"{rows.shape[0]} rows for a mesh of {self.size} ranks")
-        with annotate("kmers.upload"):
-            count("upload_bytes", sum(rows[r].nbytes for r in self.ranks))
-            return [torch.from_numpy(np.ascontiguousarray(rows[r])).to(dev)
-                    for r, dev in zip(self.ranks, self.devices)]
+        return [upload(rows[r], dev) for r, dev in zip(self.ranks, self.devices)]
 
     def all_to_all(self, buckets: list) -> list:
         """Exchange per-rank buckets: local rank ``r`` gives a tensor of
@@ -126,7 +124,7 @@ class Mesh:
         (part,) = parts
         dev = self.devices[0]
         part = part.to(dev)
-        n = torch.tensor([part.shape[0]], dtype=torch.int64, device=dev)
+        n = torch.full((1,), part.shape[0], dtype=torch.int64, device=dev)
         sizes = [torch.empty_like(n) for _ in range(self.size)]
         dist.all_gather(sizes, n, group=self.group)
         sizes = [int(s) for s in sizes]

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.minimizer import minimizers, minimizers_masked
-from ..pipelines._input import ALPHABET, as_byte_array
+from ..pipelines._input import ALPHABET, as_byte_array, download
 from ..pipelines.extract import _extract
 from ..symbols import EncodeError
 from .mesh import Mesh, data_mesh
@@ -72,4 +72,4 @@ def sharded_minimizer_select(data, K: int = 15, W: int = 10, mesh: Mesh | None =
     first = torch.ones_like(pos, dtype=torch.bool)
     first[1:] = pos[1:] != pos[:-1]
     kmers = rows[:, 0][order][first]
-    return kmers.cpu().numpy().view(np.uint64), pos[first].cpu().numpy()
+    return download(kmers).view(np.uint64), download(pos[first])

@@ -23,7 +23,7 @@ import torch
 from ..convert import SENTINEL, words_to_ints
 from ..ops.count import _run_length_encode
 from ..ops.multiword import _lex_order, _run_ids, fx_hash_mw
-from ..pipelines._input import ALPHABET, as_byte_array
+from ..pipelines._input import ALPHABET, as_byte_array, download_table
 from ..pipelines.canonical_count import _count_chunk_mw
 from ..symbols import EncodeError
 from .mesh import Mesh, data_mesh
@@ -87,4 +87,5 @@ def sharded_canonical_count_mw(data, K: int = 63, mesh: Mesh | None = None,
     rows = _gather_rows(merged, mesh)
     words = rows[:, :-1].T.contiguous()
     order = _lex_order(words)
-    return words_to_ints(words[:, order].cpu().numpy()), rows[:, -1][order].cpu().numpy()
+    words, counts = download_table(words[:, order], rows[:, -1][order])
+    return words_to_ints(words.T), counts

@@ -42,7 +42,7 @@ import torch
 from ..convert import SENTINEL, SIGN_BIT
 from ..ops.count import _run_length_encode, merge_compact_tables
 from ..ops.hashing import fx_hash_u64
-from ..pipelines._input import ALPHABET, as_byte_array, download
+from ..pipelines._input import ALPHABET, as_byte_array, download_table
 from ..pipelines._stream import count_stream
 from ..pipelines.canonical_count import _count_chunk
 from ..symbols import EncodeError
@@ -301,9 +301,7 @@ def sharded_canonical_count(data, config: ShardedCountConfig = ShardedCountConfi
         if mesh.size > 1:
             keys, order = torch.sort(keys)
             counts = counts[order]
-        # real keys are non-negative: their int64 bits are the uint64 values
-        kmers = download(keys.contiguous()).view(np.uint64)
-        counts = download(counts.contiguous())
+        kmers, counts = download_table(keys.contiguous(), counts.contiguous())
         if dbg and int(counts.sum()) != n_valid:
             # end to end: the exchange neither drops nor duplicates counts
             raise RuntimeError(

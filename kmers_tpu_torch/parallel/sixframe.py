@@ -44,7 +44,7 @@ from ..genetic_codes import GeneticCode, standard_genetic_code
 from ..ops.count import merge_compact_tables
 from ..ops.kernels.sixframe_kernel import K4_MAX
 from ..ops.multiword import _lex_order, fx_hash_mw, merge_compact_tables_mw
-from ..pipelines._input import as_byte_array
+from ..pipelines._input import as_byte_array, download_table
 from ..pipelines._stream import count_stream
 from ..pipelines.sixframe import _count_chunk
 from ..utils.debug import checked_mode
@@ -172,14 +172,13 @@ def sharded_sixframe_aa_count(data, config: SixFrameCountConfig = SixFrameCountC
         if mesh.size > 1:
             keys, order = torch.sort(keys)
             counts = counts[order]
-        # real keys are non-negative: their int64 bits are the uint64 values
-        kmers = keys.contiguous().cpu().numpy().view(np.uint64)
     else:
-        words = rows[:, :-1].T.contiguous()
-        order = _lex_order(words)
-        kmers = words_to_ints(words[:, order].cpu().numpy())
-        counts = counts[order]
-    counts = counts.contiguous().cpu().numpy()
+        keys = rows[:, :-1].T.contiguous()
+        order = _lex_order(keys)
+        keys, counts = keys[:, order], counts[order]
+    kmers, counts = download_table(keys.contiguous(), counts.contiguous())
+    if K > K4_MAX:
+        kmers = words_to_ints(kmers.T)
     if checked and int(counts.sum()) != n_valid:
         raise RuntimeError(
             f"checked mode: count conservation violated across the {where} exchange — "

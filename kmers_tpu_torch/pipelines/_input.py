@@ -1,6 +1,7 @@
 """Input and device resolution shared by the pipelines: ASCII bytes to a
-uint8 array, CSR records joined with ``N``, the explicit device, the
-upload of a byte array and the download of a result."""
+uint8 array, CSR records joined with ``N``, the explicit device, and the
+host boundary: every upload of an input and every download of a result
+passes :func:`upload`, :func:`download` or :func:`download_table`."""
 
 from __future__ import annotations
 
@@ -41,11 +42,11 @@ def resolve_device(device) -> torch.device:
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A uint8 host array as a tensor on ``device`` (one copy): span
+    """A host array as a tensor of its dtype on ``device`` (one copy): span
     ``kmers.upload``, counter ``upload_bytes``."""
     with annotate("kmers.upload"):
         count("upload_bytes", arr.nbytes)
-        return torch.tensor(arr, dtype=torch.uint8, device=device)
+        return torch.tensor(arr, device=device)
 
 
 def download(t: torch.Tensor) -> np.ndarray:
@@ -65,6 +66,17 @@ def download(t: torch.Tensor) -> np.ndarray:
             arr = t.cpu().numpy()
         count("download_bytes", arr.nbytes)
     return arr
+
+
+def download_table(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """A device count table as the user's arrays, keys first: int64 keys
+    ``(n,)`` as ``np.uint64`` ``(n,)``, int64 word planes ``(W, n)`` as
+    ``np.uint64`` rows ``(n, W)``; counts as they are.  Callers pass real
+    rows only: real keys and words are non-negative, so their int64 bits
+    are the unsigned values."""
+    if keys.dim() > 1:
+        keys = keys.T.contiguous()
+    return download(keys).view(np.uint64), download(counts)
 
 
 def _download_pinned(t: torch.Tensor) -> np.ndarray | None:

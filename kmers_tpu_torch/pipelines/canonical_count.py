@@ -41,7 +41,7 @@ from ..ops.multiword import canonical_windows_mw_bytes, merge_compact_tables_mw,
 from ..symbols import EncodeError
 from ..utils.debug import checked_mode
 from ..utils.profiling import annotate
-from ._input import ALPHABET, as_byte_array, download, join_records_with_n, resolve_device, upload
+from ._input import ALPHABET, as_byte_array, download_table, join_records_with_n, resolve_device, upload
 from ._stream import count_stream
 from .extract import extract_kmers
 
@@ -178,11 +178,9 @@ def canonical_count_bytes(
                 "collision or kernel bug)"
             )
 
-        # mask on the device, so only real rows cross to the host; real keys
-        # are non-negative, so their int64 bits are already the uint64 values
+        # mask on the device, so only real rows cross to the host
         keep = acc[1] > 0
-        kmers = download(acc[0][keep]).view(np.uint64)
-        counts = download(acc[1][keep])
+        kmers, counts = download_table(acc[0][keep], acc[1][keep])
         if metrics is not None:
             n_windows = max(buf.shape[0] - K + 1, 0)
             metrics.end_batch(
@@ -229,10 +227,7 @@ def _count_words(data, config: CountConfig, device):
     )
     _check_bytes(n_invalid, n_ambig, config)
     keep = acc[1] > 0
-    # rows made on the device, so the host copies the table once; real
-    # words are non-negative, so their int64 bits are the uint64 values
-    words = download(acc[0][:, keep].T.contiguous()).view(np.uint64)
-    return words, download(acc[1][keep])
+    return download_table(acc[0][:, keep], acc[1][keep])
 
 
 def bench_input(L: int = 1 << 26) -> np.ndarray:
@@ -250,7 +245,7 @@ def bench(L: int = 1 << 26, device="cuda") -> dict:
     prints: ``{"metric", "value", "unit", "vs_baseline"}``."""
     K = 31
     device = resolve_device(device)
-    buf = torch.tensor(bench_input(L), dtype=torch.uint8, device=device)
+    buf = upload(bench_input(L), device)
     int(_count_chunk(buf, K, False)[1][0])
     t0 = time.perf_counter()
     for _ in range(3):

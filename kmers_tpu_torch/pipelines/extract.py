@@ -23,13 +23,13 @@ from ..ops.kernels.general_kernel import windows_general, windows_k32
 from ..ops.minimizer import closed_syncmer_mask, minimizers, minimizers_masked
 from ..ops.windows import canonical_windows_from_codes, window_valid_mask, windows_from_codes
 from ..symbols import EncodeError
-from ._input import ALPHABET, as_byte_array, resolve_device
+from ._input import ALPHABET, as_byte_array, download, resolve_device, upload
 
 __all__ = ["extract_kmers", "spaced_kmers", "minimizer_select", "syncmer_select"]
 
 
 def _upload(data, device):
-    return torch.tensor(as_byte_array(data), dtype=torch.uint8, device=resolve_device(device))
+    return upload(as_byte_array(data), resolve_device(device))
 
 
 def _extract(buf: torch.Tensor, K: int, canonical: bool):
@@ -50,7 +50,7 @@ def _extract(buf: torch.Tensor, K: int, canonical: bool):
 
 
 def _values(win: torch.Tensor) -> np.ndarray:
-    return win.cpu().numpy().view(np.uint64)
+    return download(win).view(np.uint64)
 
 
 def extract_kmers(data, K: int = 31, canonical: bool = False, skip_ambiguous: bool = True,
@@ -70,7 +70,7 @@ def extract_kmers(data, K: int = 31, canonical: bool = False, skip_ambiguous: bo
     if n_amb and not skip_ambiguous:
         raise EncodeError(ALPHABET, "<ambiguous base>")
     pos = torch.nonzero(valid).reshape(-1)
-    return _values(win[valid]), pos.cpu().numpy()
+    return _values(win[valid]), download(pos)
 
 
 def spaced_kmers(data, K: int, J: int, canonical: bool = False, device="cuda"):
@@ -110,7 +110,7 @@ def syncmer_select(data, K: int = 15, s: int = 5, canonical: bool = False, devic
     if int((~certain).sum()):
         raise EncodeError(ALPHABET, "<ambiguous or invalid base>")
     pos = torch.nonzero(mask).reshape(-1)
-    return _values(win[mask]), pos.cpu().numpy()
+    return _values(win[mask]), download(pos)
 
 
 def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
@@ -135,4 +135,4 @@ def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
         kmer, pos = minimizers(win, W)
     keep = pos >= 0
     keep[1:] &= pos[1:] != pos[:-1]
-    return _values(kmer[keep]), pos[keep].cpu().numpy()
+    return _values(kmer[keep]), download(pos[keep])

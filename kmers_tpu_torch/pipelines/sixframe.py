@@ -34,7 +34,7 @@ from ..ops.count import merge_compact_tables, sort_count
 from ..ops.kernels.sixframe_kernel import K4_MAX, sixframe_windows, sixframe_words
 from ..ops.multiword import merge_compact_tables_mw, sort_count_mw
 from ..utils.debug import checked_mode
-from ._input import as_byte_array, resolve_device
+from ._input import as_byte_array, download_table, resolve_device, upload
 from ._stream import count_stream
 
 __all__ = ["SixFrameCountConfig", "sixframe_aa_count"]
@@ -104,7 +104,7 @@ def sixframe_aa_count(
     L = arr.shape[0]
     if L < 3 * K:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    buf = torch.tensor(arr, dtype=torch.uint8, device=device)
+    buf = upload(arr, device)
     checked = checked_mode()
     merge = merge_compact_tables if K <= K4_MAX else merge_compact_tables_mw
     acc, tallies = count_stream(
@@ -117,14 +117,11 @@ def sixframe_aa_count(
             f"local count — {n_valid} valid windows but {tallies[1]} counted"
         )
 
-    # mask on the device, so only real rows cross to the host; real keys
-    # and words are non-negative, so int64 bits are the unsigned values
+    # mask on the device, so only real rows cross to the host
     keep = acc[1] > 0
-    counts = acc[1][keep].cpu().numpy()
-    if K <= K4_MAX:
-        kmers = acc[0][keep].cpu().numpy().view(np.uint64)
-    else:
-        kmers = words_to_ints(acc[0][:, keep].cpu().numpy())
+    kmers, counts = download_table(acc[0][..., keep], acc[1][keep])
+    if K > K4_MAX:
+        kmers = words_to_ints(kmers.T)
     if metrics is not None:
         # 2(L - 3K + 1) six-frame windows exist; skipped = the invalid ones
         metrics.end_batch(

@@ -23,7 +23,7 @@ import numpy as np
 from ..ops.count import merge_compact_tables
 from ..symbols import EncodeError
 from ..utils.profiling import annotate
-from ._input import ALPHABET, as_byte_array, download, join_records_with_n, resolve_device, upload
+from ._input import ALPHABET, as_byte_array, download_table, join_records_with_n, resolve_device, upload
 from ._stream import level_stack, push_chunks
 from .canonical_count import CountConfig, _count_chunk
 
@@ -109,11 +109,9 @@ class StreamingCounter:
             if not len(self._stack):
                 return np.zeros(0, np.uint64), np.zeros(0, np.int64)
             keys, counts = self._stack.fold()
-            # mask on the device, so only real rows cross to the host; real keys
-            # are non-negative, so their int64 bits are the uint64 values
+            # mask on the device, so only real rows cross to the host
             keep = counts > 0
-            kmers = download(keys[keep]).view(np.uint64)
-            counts = download(counts[keep])
+            kmers, counts = download_table(keys[keep], counts[keep])
             counted = int(counts.sum())
             if counted != self._n_valid:
                 raise RuntimeError(

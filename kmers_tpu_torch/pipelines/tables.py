@@ -22,11 +22,10 @@ package guarantees.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..io.fasta import merge_count_tables_native
 from ..ops.count import merge_compact_tables
-from ._input import resolve_device
+from ._input import download_table, resolve_device, upload
 
 __all__ = [
     "merge_counts",
@@ -128,8 +127,7 @@ def _upload_table(kmers, counts, device):
     kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
     if (kmers >> np.uint64(62)).any():
         raise ValueError("merge_counts_device takes K <= 31 tables (keys below 2^62)")
-    keys = torch.from_numpy(kmers.view(np.int64)).to(device)
-    return keys, torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)).to(device)
+    return upload(kmers.view(np.int64), device), upload(np.ascontiguousarray(counts, dtype=np.int64), device)
 
 
 def merge_counts_device(a_kmers, a_counts, b_kmers, b_counts, device="cuda"):
@@ -149,4 +147,4 @@ def merge_counts_device(a_kmers, a_counts, b_kmers, b_counts, device="cuda"):
         *_upload_table(ak, ac, device), *_upload_table(bk, bc, device)
     )
     n = int(n_unique)
-    return keys[:n].cpu().numpy().view(np.uint64), counts[:n].cpu().numpy()
+    return download_table(keys[:n], counts[:n])

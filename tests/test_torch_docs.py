@@ -4,7 +4,7 @@ the JAX package's page.
 The port's pages are the counterparts of ``docs/*.md``, one for each
 (``gpu.md`` in place of ``tpu.md``), with the same blocks in the same
 order and the JAX page's variable names.  Each port page runs with
-``chip_smoke.docs_namespace`` (the free variables of
+:func:`docs_namespace` (the free variables of
 ``tests/test_docs.py``'s preamble, with ``device="cpu"``); each JAX page
 with ``tests/test_docs.py``'s own preamble, on the same ``seq`` and the same
 FASTQ file.  After each block every variable that both blocks bound is
@@ -14,7 +14,10 @@ by value, registers and hashes through ``convert.py`` where the layouts
 differ (``CONVERTED``), k-mers by alphabet, K and value.
 
 The port's entry points default to ``device="cuda"``, so a block that
-forgot ``device=device`` raises here, where there is no GPU.
+forgot ``device=device`` raises here, where there is no GPU.  On a card,
+the test marked ``cuda`` runs each port page with ``device="cuda"`` and
+holds its values against the same page on the CPU (run it with
+``python -m pytest tests/test_torch_docs.py -m cuda --noconftest -o addopts="" -q``).
 
 The value of each top-level expression statement (what an interactive
 session shows) is held equal too, in order.  Not compared
@@ -23,8 +26,8 @@ that binds a name that is neither compared nor listed fails the test.
 """
 
 import ast
+import re
 import shutil
-import sys
 import types
 from pathlib import Path
 
@@ -32,12 +35,71 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-if str(ROOT) not in sys.path:
-    sys.path.insert(0, str(ROOT))
-
-import chip_smoke as cs  # noqa: E402
-
 JAX_DOCS = ROOT / "docs"
+DOCS_PORT = ROOT / "docs" / "torch_port"
+
+def doc_pages() -> list:
+    """``(name, blocks)`` for each page of ``docs/torch_port`` that holds
+    ```python blocks, in name order."""
+    out = []
+    for p in sorted(DOCS_PORT.glob("*.md")):
+        blocks = re.findall(r"```python\n(.*?)```", p.read_text(), re.S)
+        if blocks:
+            out.append((p.name, blocks))
+    return out
+
+
+def docs_namespace(seq: str, fastx_path: str, tmp_path: Path, device) -> dict:
+    """The free variables of the port's pages, as ``tests/test_docs.py``'s
+    preamble binds them for the JAX pages: a DNA string ``seq`` (and
+    ``seq_a``, ``seq_b``), its 2-bit ``codes`` on ``device``, the window
+    parameters ``K`` and ``W``, a 4-bit ``Seq``, a checkpoint's ``rank`` and
+    ``n``, a few names of the top level, ``tmp_path``, a gzip FASTQ file
+    ``fastx_path`` and ``device``."""
+    import torch
+
+    import kmers_tpu_torch as kt
+    from kmers_tpu_torch.ops.encode import classify_2bit
+
+    data = torch.frombuffer(bytearray(seq.encode()), dtype=torch.uint8).to(device)
+    return {
+        "np": np,
+        "seq": seq,
+        "seq_a": seq,
+        "seq_b": seq[1:] + "A",
+        "codes": classify_2bit(data)[0],
+        "K": 15,
+        "W": 10,
+        "seq4bit": kt.Seq(kt.DNAAlphabet4(), "TGCA"),
+        "rank": 0,
+        "n": 1,
+        "fx_hash": kt.fx_hash,
+        "CanonicalDNAMers": kt.CanonicalDNAMers,
+        "AAKmer": kt.AAKmer,
+        "DNAAlphabet2": kt.DNAAlphabet2,
+        "DNAAlphabet4": kt.DNAAlphabet4,
+        "AminoAcidAlphabet": kt.AminoAcidAlphabet,
+        "ncbi_trans_table": kt.ncbi_trans_table,
+        "tmp_path": tmp_path,
+        "fastx_path": fastx_path,
+        "device": device,
+    }
+
+
+def run_doc_blocks(page: str, blocks, ns: dict) -> list:
+    """Run ``blocks`` one after another in ``ns`` (one page's blocks share a
+    namespace); for each block, the names it bound or rebound and their
+    values.  A block that raises ends the run."""
+    bound = []
+    for i, block in enumerate(blocks):
+        before = dict(ns)
+        try:
+            exec(compile(block, f"{page}[block {i}]", "exec"), ns)
+        except Exception as e:
+            raise AssertionError(f"{page} block {i}: {e!r}\n{block}") from e
+        bound.append({k: v for k, v in ns.items() if k not in before or before[k] is not v})
+    return bound
+
 
 #: port variable -> (the JAX page's variables, how to bring them to the port's layout)
 CONVERTED = {
@@ -127,12 +189,10 @@ def same(a, b) -> bool:
 
 def _pages():
     jax_pages = {p.name for p in JAX_DOCS.glob("*.md")}
-    return [(name, blocks) for name, blocks in cs.doc_pages() if name in jax_pages]
+    return [(name, blocks) for name, blocks in doc_pages() if name in jax_pages]
 
 
 def _jax_blocks(name):
-    import re
-
     return re.findall(r"```python\n(.*?)```", (JAX_DOCS / name).read_text(), re.S)
 
 
@@ -157,12 +217,12 @@ def _run_both(name, blocks, tmp_path, monkeypatch):
     jax_ns = test_docs._preamble(jax_dir)
     fastx = port_dir / Path(jax_ns["fastx_path"]).name
     shutil.copy(jax_ns["fastx_path"], fastx)
-    port_ns = cs.docs_namespace(jax_ns["seq"], str(fastx), port_dir, "cpu")
+    port_ns = docs_namespace(jax_ns["seq"], str(fastx), port_dir, "cpu")
     jax_ns["__out__"], port_ns["__out__"] = {}, {}
     monkeypatch.chdir(jax_dir)  # the pages write and read relative paths
-    jax_bound = cs.run_doc_blocks(name, [with_outputs(b, i) for i, b in enumerate(_jax_blocks(name))], jax_ns)
+    jax_bound = run_doc_blocks(name, [with_outputs(b, i) for i, b in enumerate(_jax_blocks(name))], jax_ns)
     monkeypatch.chdir(port_dir)
-    port_bound = cs.run_doc_blocks(name, [with_outputs(b, i) for i, b in enumerate(blocks)], port_ns)
+    port_bound = run_doc_blocks(name, [with_outputs(b, i) for i, b in enumerate(blocks)], port_ns)
     return (jax_bound, jax_ns["__out__"]), (port_bound, port_ns["__out__"])
 
 
@@ -200,12 +260,55 @@ def test_port_page_matches_the_jax_page(name, blocks, tmp_path, monkeypatch):
     assert (compared, shown) == COMPARED[name]
 
 
+def _port_inputs(tmp_path):
+    """``seq`` and ``fastx_path`` as ``tests/test_docs.py``'s preamble draws
+    them (600 bases, then six reads of 200 from the same generator), with
+    no import of the JAX package."""
+    import test_docs
+
+    rng = np.random.default_rng(0)
+    seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 600))
+    return seq, test_docs._write_fastx_gz(tmp_path, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,blocks", doc_pages(), ids=[n for n, _ in doc_pages()])
+def test_port_page_runs_on_the_card(name, blocks, tmp_path, monkeypatch):
+    """Each port page with ``device="cuda"``: every block runs, and every
+    value it binds or shows equals the same page's on the CPU."""
+    import torch
+
+    # decided here, never at import: every xdist worker collects the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = []
+    for device in ("cpu", "cuda"):
+        where = tmp_path / device
+        where.mkdir()
+        ns = docs_namespace(*_port_inputs(where), where, device)
+        ns["__out__"] = {}
+        monkeypatch.chdir(where)  # the pages write and read relative paths
+        runs.append((run_doc_blocks(name, [with_outputs(b, i) for i, b in enumerate(blocks)], ns), ns["__out__"]))
+    (cpu_bound, cpu_out), (card_bound, card_out) = runs
+    for i, (card, cpu) in enumerate(zip(card_bound, cpu_bound)):
+        for var, value in card.items():
+            if var in ("__builtins__", "__out__") or not _is_value(value) or (name, var) in NOT_COMPARED:
+                continue
+            assert same(value, cpu[var]), f"{name} block {i}: {var} differs on the card"
+    for i in range(len(blocks)):
+        card, cpu = card_out.get(i, []), cpu_out.get(i, [])
+        assert len(card) == len(cpu)
+        for j, (a, b) in enumerate(zip(card, cpu)):
+            if (name, i, j) not in EXPR_NOT_COMPARED:
+                assert same(a, b), f"{name} block {i}: expression {j} differs on the card: {a!r} vs {b!r}"
+
+
 def test_every_jax_page_has_a_port_page():
-    port = {p.name for p in cs.DOCS_PORT.glob("*.md")}
+    port = {p.name for p in DOCS_PORT.glob("*.md")}
     jax = {p.name for p in JAX_DOCS.glob("*.md")}
     assert port == (jax - {"tpu.md"}) | {"gpu.md"}
     for name in port & jax:
-        assert len(_jax_blocks(name)) == len(dict(cs.doc_pages()).get(name, ())), name
+        assert len(_jax_blocks(name)) == len(dict(doc_pages()).get(name, ())), name
 
 
 def test_the_pages_run_with_the_ports_cuda_defaults():
@@ -216,13 +319,11 @@ def test_the_pages_run_with_the_ports_cuda_defaults():
 
     for fn in (canonical_count, extract_kmers, minhash_sketch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert {name for name, _ in cs.doc_pages()} == {name for name, _ in _pages()}
+    assert {name for name, _ in doc_pages()} == {name for name, _ in _pages()}
 
 
 def test_not_compared_names_are_bound_by_their_page():
-    import re
-
     for (page, var), why in NOT_COMPARED.items():
-        src = "\n".join(dict(cs.doc_pages())[page])
+        src = "\n".join(dict(doc_pages())[page])
         assert re.search(rf"^{var}\b\s*(,[^=\n]*)?=", src, re.M), (page, var)
         assert why

@@ -1,10 +1,14 @@
-"""The download of a result (``kmers_tpu_torch/pipelines/_input.py::download``).
+"""The host boundary (``kmers_tpu_torch/pipelines/_input.py``): the
+download of a result, a count table's layout, and the entries that cross
+it.
 
 A CUDA result of at least ``PINNED_MIN_BYTES`` comes back in pinned host
 memory from torch's caching host allocator; smaller results and CPU tensors
 take ``t.cpu().numpy()``.  Either way the caller gets the array that
-``t.cpu().numpy()`` gives: dtype, shape, strides, values, writable.  The
-tests marked ``cuda`` skip without a card; run them on a GPU host with
+``t.cpu().numpy()`` gives: dtype, shape, strides, values, writable.
+``download_table`` lays a device table out as the user's arrays, and every
+entry records the bytes it uploads and downloads.  The tests marked
+``cuda`` skip without a card; run them on a GPU host with
 ``python -m pytest tests/test_torch_download.py -m cuda --noconftest -o addopts="" -q``."""
 
 import numpy as np
@@ -12,10 +16,23 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from kmers_tpu_torch import CountConfig, StreamingCounter, canonical_count_bytes, minhash_sketch
+from kmers_tpu_torch import (
+    CountConfig,
+    SixFrameCountConfig,
+    StreamingCounter,
+    canonical_count_bytes,
+    extract_kmers,
+    merge_counts_device,
+    minhash_sketch,
+    minimizer_select,
+    sixframe_aa_count,
+    syncmer_select,
+)
 from kmers_tpu_torch import parallel as par
+from kmers_tpu_torch.parallel.pipeline import _shard_with_halo, _slabs
+from kmers_tpu_torch.parallel.sixframe import _sixframe_slabs
 from kmers_tpu_torch.pipelines import _input
-from kmers_tpu_torch.pipelines._input import PINNED_MIN_BYTES, download
+from kmers_tpu_torch.pipelines._input import PINNED_MIN_BYTES, download, download_table
 from kmers_tpu_torch.utils.profiling import counters, reset_counters
 
 MIB = 1 << 20
@@ -86,6 +103,86 @@ def test_cpu_count_of_a_large_table_counts_no_pinned_bytes():
     (kmers, counts), totals = _counted(lambda: canonical_count_bytes(data, CountConfig(K=31), device="cpu"))
     assert kmers.nbytes >= PINNED_MIN_BYTES
     assert totals == {"upload_bytes": data.size, "download_bytes": kmers.nbytes + counts.nbytes}
+
+
+@pytest.mark.parametrize("shape", [(0,), (5_000,), (2, 0), (2, 5_000), (4, 3)])
+def test_download_table_lays_keys_and_word_planes_out_as_rows(shape):
+    """Keys ``(n,)`` come back as ``np.uint64`` ``(n,)``, word planes
+    ``(W, n)`` as C-contiguous ``np.uint64`` rows ``(n, W)``, every bit
+    kept; counts as ``np.int64``; keys are downloaded first."""
+    g = torch.Generator().manual_seed(7)
+    keys = torch.randint(-(2**62), 2**62, shape, generator=g)
+    counts = torch.randint(1, 1000, shape[-1:], generator=g)
+    (kmers, got), totals = _counted(lambda: download_table(keys, counts))
+    want = keys.numpy().T
+    assert kmers.dtype == np.uint64 and kmers.shape == want.shape and kmers.flags.c_contiguous
+    assert np.array_equal(kmers.view(np.int64), want)
+    _same_array(got, counts.numpy())
+    assert totals == {"download_bytes": keys.nbytes + counts.nbytes}
+
+
+def _bases(n, seed):
+    return np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(seed).integers(0, 4, n)]
+
+
+DATA = _bases(6_000, 9)
+
+
+def _mesh2():
+    return par.data_mesh(2, device="cpu")
+
+
+def _merged():
+    a = canonical_count_bytes(_bases(3_000, 5), CountConfig(K=21), device="cpu")
+    b = canonical_count_bytes(_bases(3_000, 6), CountConfig(K=21), device="cpu")
+    # both tables go up: 8 bytes a key and 8 a count
+    return lambda: merge_counts_device(*a, *b, device="cpu"), 16 * (a[0].size + b[0].size)
+
+
+def _minimizer_slabs():
+    span = 10 + 15 - 1
+    shard = -(-(DATA.size - span + 1) // 2)
+    return _slabs(DATA, 2, shard, span - 1, ord("A"))
+
+
+#: entry -> () -> (the call, the bytes it uploads, int64 words a key of its table)
+BOUNDARY = {
+    "sixframe_k7": lambda: (lambda: sixframe_aa_count(DATA, SixFrameCountConfig(K=7), device="cpu"),
+                            DATA.nbytes, 1),
+    "sixframe_k12": lambda: (lambda: sixframe_aa_count(DATA, SixFrameCountConfig(K=12), device="cpu"),
+                             DATA.nbytes, 2),
+    "extract_kmers": lambda: (lambda: extract_kmers(DATA, K=21, device="cpu"), DATA.nbytes, 1),
+    "minimizer_select": lambda: (lambda: minimizer_select(DATA, K=15, W=10, device="cpu"), DATA.nbytes, 1),
+    "syncmer_select": lambda: (lambda: syncmer_select(DATA, K=15, s=5, device="cpu"), DATA.nbytes, 1),
+    "merge_counts_device": lambda: (*_merged(), 1),
+    "sharded_canonical_count_mw": lambda: (
+        lambda: par.sharded_canonical_count_mw(DATA, K=47, mesh=_mesh2()),
+        _shard_with_halo(DATA, 2, 47, pad_byte=ord("N"))[0].nbytes, 2),
+    "sharded_minimizer_select": lambda: (
+        lambda: par.sharded_minimizer_select(DATA, K=15, W=10, mesh=_mesh2()), _minimizer_slabs().nbytes, 1),
+    "sharded_sixframe_k7": lambda: (
+        lambda: par.sharded_sixframe_aa_count(DATA, par.SixFrameCountConfig(K=7), _mesh2()),
+        _sixframe_slabs(DATA, 2, 7)[0].nbytes, 1),
+    "sharded_sixframe_k12": lambda: (
+        lambda: par.sharded_sixframe_aa_count(DATA, par.SixFrameCountConfig(K=12), _mesh2()),
+        _sixframe_slabs(DATA, 2, 12)[0].nbytes, 2),
+}
+
+
+@pytest.mark.parametrize("entry", list(BOUNDARY))
+def test_entries_cross_the_host_boundary_once_each_way(entry):
+    """Each entry uploads through ``upload`` (a sharded one, every local
+    rank's slab) and downloads through ``download``: the counters hold the
+    bytes of its input and of its result before any boxing into Python
+    ints (``W`` int64 words a key)."""
+    call, uploaded, W = BOUNDARY[entry]()
+    out, totals = _counted(call)
+    rows = out[0].size
+    want = rows * 8 * W + sum(a.nbytes for a in out[1:])
+    assert out[0].dtype == (np.uint64 if W == 1 else object) and rows > 0
+    assert totals["upload_bytes"] == uploaded
+    assert totals["download_bytes"] == want
+    assert "download_pinned_bytes" not in totals
 
 
 # -- on the card ------------------------------------------------------------
@@ -179,10 +276,6 @@ def test_failed_pinned_allocation_falls_back_to_cpu(cuda, monkeypatch):
     assert totals == {"download_bytes": t.nbytes}
 
 
-def _bases(n, seed):
-    return np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(seed).integers(0, 4, n)]
-
-
 def _count(dev):
     return canonical_count_bytes(_bases(400_000, 1), CountConfig(K=31), device=dev)
 
@@ -202,12 +295,18 @@ def _sketch(dev):
     return (minhash_sketch(_bases(400_000, 4), K=21, s=1000, device=dev),)
 
 
+def _sixframe(dev):
+    return sixframe_aa_count(_bases(400_000, 7), SixFrameCountConfig(K=7), device=dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry, pinned", [(_count, True), (_stream, True), (_sharded, True), (_sketch, False)])
+@pytest.mark.parametrize("entry, pinned", [(_count, True), (_stream, True), (_sharded, True), (_sixframe, True),
+                                           (_sketch, False)])
 def test_entries_download_large_tables_pinned_and_sketches_pageable(cuda, entry, pinned):
     """The count, stream and sharded tables (~400,000 rows, 3.2 MB each
-    array) come back pinned, every downloaded byte through the pinned path;
-    the sketch's 8 KB head does not.  Each equals the CPU device's answer."""
+    array) and the six-frame table (~800,000 rows) come back pinned, every
+    downloaded byte through the pinned path; the sketch's 8 KB head does
+    not.  Each equals the CPU device's answer."""
     got, totals = _counted(lambda: entry("cuda"))
     want = entry("cpu")
     assert len(got) == len(want)

@@ -11,8 +11,8 @@ CLI's ``count`` (also with ``--stream`` and ``-o``), ``sketch``, the
 sharded ``sixframe``, ``merge`` and ``verify`` on the CPU, and finds neither in
 ``sys.modules``; a fresh interpreter that runs
 ``examples/torch_port/count_fasta.py`` finds neither either; and no source
-of the port, of its examples or of ``chip_smoke.py``, and no block of
-``docs/torch_port/*.md``, has such an import."""
+of the port, of its examples or of ``tools/parallel_dist.py``, and no block
+of ``docs/torch_port/*.md``, has such an import."""
 
 import json
 import os
@@ -159,7 +159,7 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert totals[0] == totals[1] and totals[0]["total"] == (12 - 4) + (7 - 4)
 
 
-SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+SOURCES = [*(ROOT / "kmers_tpu_torch").rglob("*.py"), ROOT / "tools" / "parallel_dist.py",
            *(ROOT / "examples" / "torch_port").glob("*.py")]
 
 EXAMPLE_SCRIPT = """
@@ -203,6 +203,7 @@ def test_sources_hold_the_new_modules():
     assert {
         "examples/torch_port/count_fasta.py", "examples/torch_port/stream_count.py",
         "examples/torch_port/minimizer_index.py", "examples/torch_port/sketch_compare.py",
+        "tools/parallel_dist.py",
     } <= names
     assert {
         "kmers_tpu_torch/io/native/__init__.py", "kmers_tpu_torch/utils/checkpoint.py",

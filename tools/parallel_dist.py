@@ -1,15 +1,17 @@
 """The parallel plane with one rank a process: this script starts ``--ranks``
 copies of itself joined by ``torch.distributed`` over ``tcp://localhost``
 (NCCL, one GPU a rank, or gloo on the CPU), and each process, holding the
-whole synthetic chromosome of ``chip_smoke.py``, checks the whole sharded
+whole synthetic chromosome of the benchmark's ``chr21`` traffic
+(``kmer_bench/gen.py``, ``--bases`` long, seed 21), checks the whole sharded
 result against single-device counting on its own device:
 ``sharded_canonical_count`` at K = 31, ``sharded_canonical_count_mw`` at
 K = 47 on the 4 Mb around the poly-A region, ``sharded_minimizer_select``
 at K = 15, W = 10, ``sharded_sixframe_aa_count`` at K = 7 on the whole
 chromosome and at K = 12 on its 1 Mb at a third, and a bucket overflow
-that must raise on every rank.  It prints each rank's walls, launches,
-``cap`` and the exchanges' device time (``torch.profiler``), then one
-summary line.
+that must raise on every rank.  Each rank's k-mers must be routed to it and
+its kernel launches must match its slab's geometry.  It prints each rank's
+walls, launches and ``cap``, then one summary line.  The benchmark's
+``chr21_4gpu`` cell times the sharded count; this script checks it.
 
     python tools/parallel_dist.py --ranks 4 --backend nccl       # 4 GPUs
     python tools/parallel_dist.py --ranks 4 --backend gloo --bases 2000000
@@ -19,6 +21,7 @@ summary line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -33,12 +36,67 @@ K, K_MW, MW_SLICE = 31, 47, 4_000_000
 K_AA, K_AA_WIDE, AA_SLICE = 7, 12, 1 << 20
 
 
+def chromosome(bases: int):
+    """The ``chr21`` traffic's chromosome, ``bases`` long, of seed 21."""
+    from kmer_bench.gen import rng_for, synth_chromosome
+
+    traffic = json.loads((ROOT / "kmer_bench" / "traffic" / "chr21.json").read_text())
+    return synth_chromosome({**traffic, "bases": bases}, rng_for(21))
+
+
+@contextlib.contextmanager
+def capture_exchanges(module, name: str):
+    """Record each call of ``module.<name>`` (an exchange: ``(tables, mesh,
+    cap, ...)`` -> ``(merged, overflow)``) as a dict of its inputs and
+    outputs; restores the function on exit."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(tables, mesh, cap, *args):
+        merged, overflow = real(tables, mesh, cap, *args)
+        calls.append({"tables": tables, "mesh": mesh, "cap": cap, "args": args,
+                      "merged": merged, "overflow": overflow})
+        return merged, overflow
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def fold_geometry(n_ranks: int, L: int, k: int, chunk: int) -> dict:
+    """K1, K2, K9 and K10 launches of a sharded K <= 31 count: per rank one
+    K1 and one K2 a slab chunk; on the streamed route one K10 a chunk and,
+    for each of the chunks - 1 merges of the level stack, one K9 and one
+    K10.  A slab of one chunk is counted in one dispatch and not folded."""
+    shard = -(-L // n_ranks)
+    steps = len(range(0, shard, chunk - (k - 1))) if -(-shard // chunk) > 1 else 1
+    return {"canonical_windows": n_ranks * steps, "rle_unit": n_ranks * steps,
+            "merge_tables": n_ranks * (steps - 1),
+            "compact_table": n_ranks * (2 * steps - 1) if steps > 1 else 0}
+
+
+def sixframe_geometry(n_ranks: int, L: int, k: int, chunk: int, words: bool) -> dict:
+    """K4 (or K5), K2, K9 and K10 launches of a sharded six-frame count: a
+    rank's slab of ``shard + 6k`` bytes streams in chunks that overlap by
+    3k - 1, each one front-end and one K2 launch; more than one chunk adds
+    one K10 a chunk and, for each of the chunks - 1 merges, one K10 and
+    (one-word tables only) one K9."""
+    shard = -(-L // n_ranks)
+    shard += (-shard) % 3
+    steps = len(range(0, shard + 3 * k + 1, chunk - (3 * k - 1)))
+    front = "sixframe_words" if words else "sixframe_windows"
+    return {front: n_ranks * steps, "rle_unit": n_ranks * steps,
+            "merge_tables": 0 if words else n_ranks * (steps - 1),
+            "compact_table": n_ranks * (2 * steps - 1) if steps > 1 else 0}
+
+
 def worker(args) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    import chip_smoke as cs
     from kmers_tpu_torch import (
         CountConfig,
         SixFrameCountConfig,
@@ -71,7 +129,7 @@ def worker(args) -> dict:
                 torch.cuda.synchronize(dev)
             dist.barrier()
 
-        chrom = cs.synth_chromosome(args.bases, seed=21)
+        chrom = chromosome(args.bases)
         L = chrom.size
         out = {"rank": mesh.ranks[0], "size": mesh.size, "device": str(dev)}
         if on_gpu:
@@ -90,7 +148,7 @@ def worker(args) -> dict:
                     "merge_tables": merge_tables, "compact_table": compact_table}
             for fn in fold.values():
                 fn.launches = 0
-            with cs.capture_exchanges(pipe, "exchange_and_merge") as calls:
+            with capture_exchanges(pipe, "exchange_and_merge") as calls:
                 sync()
                 t0 = time.perf_counter()
                 got = par.sharded_canonical_count(chrom, cfg, mesh)
@@ -98,7 +156,7 @@ def worker(args) -> dict:
                 out["sharded_s"] = time.perf_counter() - t0
             out["launches"] = {name: fn.launches for name, fn in fold.items()}
             out["geometry"] = {name: n // mesh.size
-                               for name, n in cs._fold_geometry(mesh.size, L, K, cfg.chunk_size).items()}
+                               for name, n in fold_geometry(mesh.size, L, K, cfg.chunk_size).items()}
             (call,) = calls
             out["cap"], out["overflow"] = call["cap"], call["overflow"]
             out["k31_equal"] = bool(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]))
@@ -106,13 +164,7 @@ def worker(args) -> dict:
             out["routed_to_self"] = bool(
                 (pipe.destination(fx_hash_u64(keys[counts > 0]), mesh.size) == mesh.ranks[0]).all()
             )
-            del want, got
-            if on_gpu:
-                _, busy, categories, _ = cs.device_profile(
-                    lambda: pipe.exchange_and_merge(call["tables"], mesh, call["cap"]), warm=True)
-                out["exchange_device_ms"] = 1e3 * busy
-                out["exchange_categories_ms"] = {c: 1e3 * v for c, v in categories.most_common(5)}
-            del call, calls
+            del want, got, call, calls
 
             part = chrom[L // 3 - MW_SLICE // 2 : L // 3 + MW_SLICE // 2]
             want = canonical_count_bytes(part, CountConfig(K=K_MW), device=dev)
@@ -152,14 +204,14 @@ def worker(args) -> dict:
                 want = sixframe_aa_count(seq, SixFrameCountConfig(K=k), device=dev)
                 for fn in six.values():
                     fn.launches = 0
-                with cs.capture_exchanges(psix, "_exchange_tables") as calls:
+                with capture_exchanges(psix, "_exchange_tables") as calls:
                     sync()
                     t0 = time.perf_counter()
                     got = par.sharded_sixframe_aa_count(seq, par.SixFrameCountConfig(K=k), mesh)
                     sync()
                     out[f"{tag}_s"] = time.perf_counter() - t0
                 geometry = dict.fromkeys(six, 0)
-                geometry.update(cs._sixframe_geometry(mesh.size, seq.size, k, 1 << 20, k > K_AA))
+                geometry.update(sixframe_geometry(mesh.size, seq.size, k, 1 << 20, k > K_AA))
                 out[f"{tag}_launches"] = {name: fn.launches for name, fn in six.items()}
                 out[f"{tag}_geometry"] = {name: n // mesh.size for name, n in geometry.items()}
                 out[f"{tag}_equal"] = bool(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]))
@@ -169,10 +221,6 @@ def worker(args) -> dict:
                 real = keys[..., counts > 0]
                 hashes = fx_hash_u64(real) if k <= K_AA else fx_hash_mw(real, k, bps=8)
                 out[f"{tag}_routed_to_self"] = bool((pipe.destination(hashes, mesh.size) == mesh.ranks[0]).all())
-                if on_gpu:
-                    _, busy, _, _ = cs.device_profile(
-                        lambda: psix._exchange_tables(call["tables"], mesh, call["cap"], k), warm=True)
-                    out[f"{tag}_exchange_device_ms"] = 1e3 * busy
                 del call, calls, want, got
         sync()
         return out
