@@ -1,7 +1,9 @@
-// K9: merge of two sorted count tables, and K10: front-packing (stream
+// K9: merge of two sorted count tables (one-word keys, and its word
+// instance k9w over W word planes), and K10: front-packing (stream
 // compaction) of a count table.  Together with the weighted RLE between
 // them they make up the device table fold (ops/count.py
-// merge_compact_tables), which every counting path runs after its chunks.
+// merge_compact_tables; ops/multiword.py merge_compact_tables_mw for word
+// tables), which every counting path runs after its chunks.
 //
 // K9 replaces the TPU kernel kmers_tpu/ops/pallas/merge_kernel.py
 // bitonic_merge_tail_pallas (_kernel): the in-tile compare-exchange steps of
@@ -29,6 +31,18 @@
 // tile out with 16-byte stores.  Every row is read from device memory once,
 // coalesced, and written once; only the co-ranks are read twice.  Indices
 // are int64: two 2^30-row tables fit on an 80 GB card.
+//
+// K9's word instance (k9w_*, W = 2..5 words a key): the same partitioned
+// merge path over tables of W word planes, counts as the payload, rows
+// compared lexicographically (merge_path.cuh, WordMergeSpec).  It replaces
+// the stable lexicographic re-sort of the concatenated tables that the word
+// fold (ops/multiword.py merge_compact_tables_mw) ran before; the JAX
+// package's counterpart is kmers_tpu/ops/multiword.py merge_compact_tables_mw,
+// a multi-limb bitonic merge network.  Bound by device memory as K9: a
+// two-word row is 24 bytes read once and written once.  Each input's word
+// planes take their own stride, so a table cut to its live rows is merged
+// without a copy.  A block stages W + 1 planes of a tile of 2,048 rows
+// (1,024 beyond W = 3): at W = 2 that is 55 KB, three blocks an SM.
 //
 // K10 design: the TPU kernel carried "tile plus next tile" state from one
 // grid step to the next; CUDA blocks run in no order, so compaction takes
@@ -60,6 +74,37 @@ k9_merge_kernel(kmers::MergeSpec s, const int64_t* __restrict__ corank) {
     extern __shared__ int64_t smem[];
     kmers::merge_tile<true>(s, corank, smem, smem + kmers::kMergePlane);
 }
+
+template <int W>
+__global__ void __launch_bounds__(kmers::kMergeThreads)
+k9w_partition_kernel(kmers::WordMergeSpec s, int64_t tiles, int64_t* __restrict__ corank) {
+    kmers::word_merge_partition<W>(s, tiles, corank);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kmers::kMergeThreads, 2)
+k9w_merge_kernel(kmers::WordMergeSpec s, const int64_t* __restrict__ corank) {
+    extern __shared__ int64_t smem[];
+    kmers::word_merge_tile<W>(s, corank, smem);
+}
+
+template <int W>
+int launch_word_merge(const kmers::WordMergeSpec& s, int64_t* corank, long long tiles,
+                      cudaStream_t st) {
+    const size_t smem = kmers::word_merge_smem(W);
+    cudaError_t err = cudaFuncSetAttribute(
+        k9w_merge_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long part_blocks = (tiles + kmers::kMergeThreads - 1) / kmers::kMergeThreads;
+    k9w_partition_kernel<W><<<static_cast<unsigned>(part_blocks), kmers::kMergeThreads, 0, st>>>(
+        s, tiles, corank);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k9w_merge_kernel<W><<<static_cast<unsigned>(tiles), kmers::kMergeThreads, smem, st>>>(s, corank);
+    return static_cast<int>(cudaGetLastError());
+}
+
+bool word_instance(int words) { return words >= 2 && words <= 5; }
 
 // (1) real rows (count > 0) of each tile
 __global__ void __launch_bounds__(kCompactThreads)
@@ -180,6 +225,41 @@ extern "C" int k9_merge_tables(const void* ka, const void* ca, long long na,
     if (err != cudaSuccess) return static_cast<int>(err);
     k9_merge_kernel<<<static_cast<unsigned>(tiles), kmers::kMergeThreads, smem, st>>>(s, corank);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Outputs a k9w block owns at W words a key; 0 for a W with no instance.
+extern "C" int k9w_merge_tile(int words) {
+    return word_instance(words) ? kmers::word_tile(words) : 0;
+}
+
+// keys: int64[words, na + nb] (planes na + nb apart, 16-byte aligned),
+// counts: int64[na + nb] (16-byte aligned), the merge of (ka, ca) and
+// (kb, cb), each sorted lexicographically by its words; word w of A's row i
+// is ka[w * a_stride + i], its count ca[i] (B alike); scratch:
+// int64[tiles], tiles = ceil((na + nb) / k9w_merge_tile(words)).
+extern "C" int k9w_merge_tables(int words, const void* ka, long long a_stride,
+                                const void* ca, long long na, const void* kb,
+                                long long b_stride, const void* cb, long long nb,
+                                void* scratch, long long tiles, void* keys,
+                                void* counts, void* stream) {
+    const long long n = na + nb;
+    if (!word_instance(words) || na < 0 || nb < 0 || a_stride < 0 || b_stride < 0 ||
+        tiles != kmers::word_merge_tiles(words, n) || !kmers::aligned16(keys) ||
+        !kmers::aligned16(counts))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return static_cast<int>(cudaGetLastError());
+    const auto st = static_cast<cudaStream_t>(stream);
+    const kmers::WordMergeSpec s{static_cast<const int64_t*>(ka), static_cast<const int64_t*>(kb),
+                                 static_cast<const int64_t*>(ca), static_cast<const int64_t*>(cb),
+                                 a_stride, b_stride, na, nb, static_cast<int64_t*>(keys),
+                                 static_cast<int64_t*>(counts)};
+    auto* corank = static_cast<int64_t*>(scratch);
+    switch (words) {
+        case 2: return launch_word_merge<2>(s, corank, tiles, st);
+        case 3: return launch_word_merge<3>(s, corank, tiles, st);
+        case 4: return launch_word_merge<4>(s, corank, tiles, st);
+        default: return launch_word_merge<5>(s, corank, tiles, st);
+    }
 }
 
 // The int64 elements of k10_compact_table's scratch for n rows: the tile

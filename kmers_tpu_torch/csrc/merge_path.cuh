@@ -1,5 +1,6 @@
-// The merge path shared by K9 (the merge of two sorted count tables) and
-// K11's merge rounds (keys only): the co-rank search, the staging of a
+// The merge path shared by K9 (the merge of two sorted count tables),
+// K11's merge rounds (keys only) and K9's word instance (tables of W word
+// planes, at the end of this file): the co-rank search, the staging of a
 // block's input ranges in shared memory, the block's merge into registers
 // and its coalesced store.
 //
@@ -211,6 +212,195 @@ inline int64_t merge_tiles(int64_t n) { return (n + kMergeTile - 1) / kMergeTile
 
 inline size_t merge_smem(bool payload) {
     return static_cast<size_t>(payload ? 2 : 1) * kMergePlane * sizeof(int64_t);
+}
+
+// ---------------------------------------------------------------------------
+// The word merge (K9's word instance): the same two launches over tables of
+// W word planes and a count plane.  Rows compare lexicographically, word 0
+// first, as signed int64 (so the sentinel row sorts last); A's row comes
+// first on equal rows.  Each input's word planes are `stride` elements apart
+// (a table cut to its live rows keeps its uncut plane stride); its rows are
+// dense in every plane.  The output's planes are n = na + nb apart.
+//
+// A block owns word_tile(W) outputs and stages W + 1 planes of its A and B
+// ranges, so the tile shrinks as W grows: word_items(W) = 8 outputs a
+// thread up to W = 3 (W = 2: 55 KB of shared memory a block, three blocks
+// an SM), 4 beyond.  A thread keeps the current row of each side in registers and
+// loads one row a step, then holds its outputs (W + 1 planes) in registers
+// until every staged range is read.
+
+struct WordMergeSpec {
+    const int64_t* a;   // A's word 0; word w at a + w * a_stride
+    const int64_t* b;
+    const int64_t* ca;  // counts, dense
+    const int64_t* cb;
+    int64_t a_stride, b_stride;
+    int64_t na, nb;
+    int64_t* out;       // (W, na + nb), planes na + nb apart
+    int64_t* out_c;
+};
+
+__host__ __device__ constexpr int word_items(int words) { return words <= 3 ? 8 : 4; }
+__host__ __device__ constexpr int word_tile(int words) { return kMergeThreads * word_items(words); }
+// shared-memory words of one plane: one pad word a thread's outputs
+__host__ __device__ constexpr int word_plane(int words) { return word_tile(words) + kMergeThreads; }
+
+inline int64_t word_merge_tiles(int words, int64_t n) {
+    return (n + word_tile(words) - 1) / word_tile(words);
+}
+
+inline size_t word_merge_smem(int words) {
+    return static_cast<size_t>(words + 1) * word_plane(words) * sizeof(int64_t);
+}
+
+// The least i in [max(0, d - nb), min(d, na)] with not a_le_b(i, d - i - 1):
+// co_rank with the comparison a functor.
+template <typename I, typename LessEq>
+__device__ __forceinline__ I co_rank_by(I na, I nb, I d, LessEq a_le_b) {
+    I lo = d > nb ? d - nb : 0;
+    I hi = d < na ? d : na;
+    while (lo < hi) {
+        const I mid = lo + (hi - lo) / 2;
+        if (a_le_b(mid, d - mid - 1)) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// Row i of planes x <= row j of planes y, lexicographically over W words.
+template <int W, typename Px, typename Py, typename I>
+__device__ __forceinline__ bool planes_le(Px x, I i, Py y, I j) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        const int64_t u = x(w)[i], v = y(w)[j];
+        if (u != v) return u < v;
+    }
+    return true;
+}
+
+template <int W>
+__device__ __forceinline__ bool row_le(const int64_t (&x)[W + 1], const int64_t (&y)[W + 1]) {
+    bool lt = false, eq = true;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        lt = lt || (eq && x[w] < y[w]);
+        eq = eq && x[w] == y[w];
+    }
+    return lt || eq;
+}
+
+// (1) corank[g] = co-rank of tile g's first output
+template <int W>
+__device__ __forceinline__ void word_merge_partition(const WordMergeSpec& s, int64_t tiles,
+                                                     int64_t* __restrict__ corank) {
+    const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (g >= tiles) return;
+    auto pa = [&](int w) { return s.a + w * s.a_stride; };
+    auto pb = [&](int w) { return s.b + w * s.b_stride; };
+    corank[g] = co_rank_by<int64_t>(s.na, s.nb, g * word_tile(W), [&](int64_t i, int64_t j) {
+        return planes_le<W>(pa, i, pb, j);
+    });
+}
+
+// dst[0, len) = the outputs in the padded layout of `src` (one pad word
+// every kItems), with 16-byte stores from dst's first 16-byte boundary on.
+template <int kItems>
+__device__ __forceinline__ void store_range(int64_t* __restrict__ dst, int len,
+                                            const int64_t* src) {
+    const int t = threadIdx.x;
+    auto at = [&](int i) { return src[i + i / kItems]; };
+    const int head = (reinterpret_cast<uintptr_t>(dst) & 15) && len > 0 ? 1 : 0;
+    if (head && t == 0) dst[0] = at(0);
+    longlong2* v = reinterpret_cast<longlong2*>(dst + head);
+    const int pairs = (len - head) >> 1;
+    for (int q = t; q < pairs; q += kMergeThreads)
+        v[q] = make_longlong2(at(head + 2 * q), at(head + 2 * q + 1));
+    if (((len - head) & 1) && t == 0) dst[len - 1] = at(len - 1);
+}
+
+// (2) the block merges tile blockIdx.x; smem holds W + 1 planes of
+// word_plane(W) words.
+template <int W>
+__device__ __forceinline__ void word_merge_tile(const WordMergeSpec& s,
+                                                const int64_t* __restrict__ corank,
+                                                int64_t* smem) {
+    constexpr int kItems = word_items(W);
+    constexpr int kTile = word_tile(W);
+    constexpr int kPlane = word_plane(W);
+    const int64_t n = s.na + s.nb;
+    const int64_t g = blockIdx.x;
+    const int64_t d0 = g * kTile;
+    const int len = static_cast<int>(imin64(kTile, n - d0));
+    const int64_t d1 = d0 + len;
+    const int64_t a0 = corank[g];
+    const int64_t a1 = d1 == n ? s.na : corank[g + 1];
+    const int64_t b0 = d0 - a0;
+    const int la = static_cast<int>(a1 - a0), lb = static_cast<int>(d1 - a1 - b0);
+    // plane w's A range, then its B range, each at the word that lets it copy
+    // in 16-byte pieces (the count plane is plane W)
+    int64_t* sa[W + 1];
+    int64_t* sb[W + 1];
+#pragma unroll
+    for (int w = 0; w <= W; ++w) {
+        const int64_t* src_a = w < W ? s.a + w * s.a_stride + a0 : s.ca + a0;
+        const int64_t* src_b = w < W ? s.b + w * s.b_stride + b0 : s.cb + b0;
+        sa[w] = congruent(smem + w * kPlane, src_a);
+        sb[w] = congruent(sa[w] + la, src_b);
+        stage_range(src_a, la, sa[w]);
+        stage_range(src_b, lb, sb[w]);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int local = threadIdx.x * kItems;
+    int64_t out[W + 1][kItems];
+    if (local < len) {
+        int i = co_rank_by<int>(la, lb, local, [&](int x, int y) {
+            return planes_le<W>([&](int w) { return sa[w]; }, x, [&](int w) { return sb[w]; }, y);
+        });
+        int j = local - i;
+        int64_t ra[W + 1], rb[W + 1];
+#pragma unroll
+        for (int w = 0; w <= W; ++w) {
+            ra[w] = i < la ? sa[w][i] : 0;
+            rb[w] = j < lb ? sb[w][j] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+            if (local + k < len) {
+                const bool take_a = j >= lb || (i < la && row_le<W>(ra, rb));
+#pragma unroll
+                for (int w = 0; w <= W; ++w) out[w][k] = take_a ? ra[w] : rb[w];
+                if (take_a) {
+                    ++i;
+                    if (i < la) {
+#pragma unroll
+                        for (int w = 0; w <= W; ++w) ra[w] = sa[w][i];
+                    }
+                } else {
+                    ++j;
+                    if (j < lb) {
+#pragma unroll
+                        for (int w = 0; w <= W; ++w) rb[w] = sb[w][j];
+                    }
+                }
+            }
+        }
+    }
+    __syncthreads();  // every read of the staged ranges is done
+    if (local < len) {
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+            if (local + k < len) {
+                const int slot = local + k + (local + k) / kItems;
+#pragma unroll
+                for (int w = 0; w <= W; ++w) smem[w * kPlane + slot] = out[w][k];
+            }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < W; ++w) store_range<kItems>(s.out + w * n + d0, len, smem + w * kPlane);
+    store_range<kItems>(s.out_c + d0, len, smem + W * kPlane);
 }
 
 }  // namespace kmers

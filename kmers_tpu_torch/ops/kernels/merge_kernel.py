@@ -16,6 +16,13 @@ computes the functions of those networks:
   :func:`merge_partitions` co-ranks), then each block stages its tile's A
   and B rows in shared memory with 16-byte loads, merges them into
   registers and writes them out with 16-byte stores.
+- :func:`merge_tables_mw`: K9's word instance, the same merge path over
+  tables of W int64 word planes (``(W, n)`` keys, word 0 the most
+  significant) whose rows are sorted lexicographically; A's row first on
+  equal rows.  Each table's planes take their own stride, so a table cut to
+  its live rows (``words[:, :nu]``) merges without a copy.  It replaces the
+  stable lexicographic re-sort of the concatenation (its plain version),
+  which the word fold ran at every merge; counter ``mw_merge_rows``.
 - :func:`compact_table`: the rows with ``counts > 0`` front-packed in
   order, :data:`~kmers_tpu_torch.convert.SENTINEL`/0 after them, the
   length unchanged.  Keys are ``(n,)`` or ``(W, n)`` word planes, which
@@ -30,14 +37,19 @@ import functools
 import torch
 
 from ...convert import SENTINEL
+from ...utils.profiling import count
 from . import _build
 
 __all__ = [
     "MERGE_TILE",
+    "MERGE_WORDS",
     "compact_table",
     "compact_table_plain",
+    "lex_order",
     "merge_partitions",
     "merge_tables",
+    "merge_tables_mw",
+    "merge_tables_mw_plain",
     "merge_tables_plain",
 ]
 
@@ -59,6 +71,31 @@ def merge_tables_plain(keys_a, counts_a, keys_b, counts_b):
     gather of the counts."""
     keys, order = torch.sort(torch.cat([keys_a, keys_b]), stable=True)
     return keys, torch.cat([counts_a, counts_b])[order]
+
+
+#: word widths K9's word instance is built for: 2-4 words of a nucleotide
+#: register (K <= 100), up to 5 of a six-frame one (K <= 32, 8 bits a residue)
+MERGE_WORDS = (2, 3, 4, 5)
+
+
+def lex_order(words: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts the columns of ``(W, n)`` words
+    lexicographically: W stable sorts, least significant word first."""
+    order = None
+    for w in reversed(range(words.shape[0])):
+        key = words[w] if order is None else words[w][order]
+        idx = torch.sort(key, stable=True).indices
+        order = idx if order is None else order[idx]
+    return order
+
+
+def merge_tables_mw_plain(words_a, counts_a, words_b, counts_b):
+    """Plain torch version of :func:`merge_tables_mw`, on any device: a
+    stable lexicographic sort of the concatenated columns (A's first, so A
+    wins ties) and a gather of the counts."""
+    words = torch.cat([words_a, words_b], 1)
+    order = lex_order(words)
+    return words[:, order], torch.cat([counts_a, counts_b])[order]
 
 
 def compact_table_plain(keys, counts):
@@ -83,6 +120,25 @@ def _merge_kernel():
 
 
 @functools.cache
+def _word_merge_kernel():
+    v = ctypes.c_void_p
+    ll = ctypes.c_longlong
+    return _build.kernel(
+        "k9w_merge_tables", (ctypes.c_int, v, ll, v, ll, v, ll, v, ll, v, ll, v, v, v)
+    )
+
+
+@functools.cache
+def _word_merge_tile(words: int) -> int:
+    """Outputs a K9 word block owns at ``words`` words, from the kernel
+    source that owns the tile size."""
+    fn = _build.library().k9w_merge_tile
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(words)
+
+
+@functools.cache
 def _compact_kernel():
     v = ctypes.c_void_p
     return _build.kernel(
@@ -100,9 +156,10 @@ def _compact_scratch_elems():
     return fn
 
 
-def _route(name: str, tensors) -> bool:
+def _route(name: str, tensors, dense=torch.Tensor.is_contiguous) -> bool:
     """Check the wrapper's tensors; True when they lie on a CUDA device
-    (launch the kernel), False on the CPU (take the plain version)."""
+    (launch the kernel), False on the CPU (take the plain version).  A CUDA
+    tensor must be ``dense`` (by default contiguous)."""
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.int64:
@@ -113,9 +170,14 @@ def _route(name: str, tensors) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(dense(t) for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
     return True
+
+
+def _rows_dense(t: torch.Tensor) -> bool:
+    """Every plane's rows lie side by side (the plane stride is free)."""
+    return t.shape[-1] <= 1 or t.stride(-1) == 1
 
 
 def merge_tables(keys_a, counts_a, keys_b, counts_b):
@@ -150,6 +212,51 @@ def merge_tables(keys_a, counts_a, keys_b, counts_b):
         _build.check(code, "k9_merge_tables")
         merge_tables.launches += 1
     return keys, counts
+
+
+def merge_tables_mw(words_a, counts_a, words_b, counts_b):
+    """Merge two word count tables whose ``(W, n)`` int64 word planes are
+    sorted lexicographically by column, word 0 first (padding columns, if
+    any, only at the tail), for W in :data:`MERGE_WORDS`.
+
+    Returns ``(words, counts)``: ``(W, na + nb)`` contiguous words and
+    their counts, sorted, A's column first on equal columns.  Nothing is
+    summed.  Each plane's rows must be dense; the plane stride is free, so
+    views cut to their live rows need no copy.  A CUDA tensor launches K9's
+    word instance (a partition and a merge launch, counted once); a CPU
+    tensor takes :func:`merge_tables_mw_plain`.  Counter ``mw_merge_rows``:
+    the columns merged, on either route.
+    """
+    tensors = (words_a, counts_a, words_b, counts_b)
+    if words_a.dim() != 2 or words_b.dim() != 2 or counts_a.dim() != 1 or counts_b.dim() != 1 \
+            or words_a.shape[0] != words_b.shape[0] or words_a.shape[1] != counts_a.shape[0] \
+            or words_b.shape[1] != counts_b.shape[0]:
+        raise ValueError(
+            "merge_tables_mw takes two tables of (W, n) words and (n,) counts of one width W"
+        )
+    W = words_a.shape[0]
+    if W not in MERGE_WORDS:
+        raise ValueError(f"merge_tables_mw is built for W in {MERGE_WORDS} words (got {W})")
+    na, nb = counts_a.shape[0], counts_b.shape[0]
+    count("mw_merge_rows", na + nb)
+    if not _route("merge_tables_mw", tensors, _rows_dense):
+        return merge_tables_mw_plain(*tensors)
+    words = torch.empty((W, na + nb), dtype=torch.int64, device=words_a.device)
+    counts = torch.empty(na + nb, dtype=torch.int64, device=words_a.device)
+    if na + nb:
+        tile = _word_merge_tile(W)
+        tiles = -(-(na + nb) // tile)
+        scratch = torch.empty(tiles, dtype=torch.int64, device=words.device)
+        with torch.cuda.device(words.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = _word_merge_kernel()(
+                W, words_a.data_ptr(), words_a.stride(0), counts_a.data_ptr(), na,
+                words_b.data_ptr(), words_b.stride(0), counts_b.data_ptr(), nb,
+                scratch.data_ptr(), tiles, words.data_ptr(), counts.data_ptr(), stream,
+            )
+        _build.check(code, "k9w_merge_tables")
+        merge_tables_mw.launches += 1
+    return words, counts
 
 
 def compact_table(keys, counts):
@@ -187,4 +294,5 @@ def compact_table(keys, counts):
 #: wrapper calls in this process that launched their kernel (K9's two and
 #: K10's three launches count once)
 merge_tables.launches = 0
+merge_tables_mw.launches = 0
 compact_table.launches = 0

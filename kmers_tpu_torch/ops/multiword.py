@@ -15,9 +15,11 @@ sorted int64 stream (:data:`SENTINEL` for the invalid run), so the
 one-word machinery counts them: kernel K2 (``rle_unit``) for a chunk and
 the weighted ``_run_length_encode`` of ``ops/count.py`` for a merge.
 ``ops/count.py::compact_counts`` (kernel K10) front-packs word tables as
-well, every word plane with its column.  Word tables merge by this sort,
-not by kernel K9, whose keys are one word, so a fold re-sorts each row at
-every level it climbs (counter ``mw_sort_rows``).  :func:`fx_hash_mw` is
+well, every word plane with its column.  Word tables merge by K9's word
+instance (``merge_tables_mw``: a merge path over word planes, counter
+``mw_merge_rows``), so each row is sorted once, in its chunk (counter
+``mw_sort_rows``), however many levels of the fold it climbs.
+:func:`fx_hash_mw` is
 the JAX package's FxHash of multi-limb registers, which routes word tables
 in the sharded exchange (``parallel/multiword.py``).
 """
@@ -31,6 +33,7 @@ from ..utils.profiling import count
 from .count import _run_length_encode, compact_counts
 from .encode import classify_2bit
 from .hashing import FX_CONSTANT, _rotl5
+from .kernels.merge_kernel import lex_order, merge_tables_mw
 from .kernels.rle_kernel import rle_unit
 from .windows import or_field, window_valid_mask
 
@@ -160,15 +163,10 @@ def canonical_windows_mw_bytes(bytes_u8: torch.Tensor, K: int):
 def _lex_order(words: torch.Tensor) -> torch.Tensor:
     """The permutation that sorts the columns of ``(W, n)`` words
     lexicographically: W stable sorts, least significant word first.
-    Counter ``mw_sort_rows``: the columns ordered (every chunk's sort and
-    every word merge's re-sort)."""
+    Counter ``mw_sort_rows``: the columns ordered (every chunk's sort, and
+    the sharded path's sort of what the exchange delivers)."""
     count("mw_sort_rows", words.shape[1])
-    order = None
-    for w in reversed(range(words.shape[0])):
-        key = words[w] if order is None else words[w][order]
-        idx = torch.sort(key, stable=True).indices
-        order = idx if order is None else order[idx]
-    return order
+    return lex_order(words)
 
 
 def _run_ids(swords: torch.Tensor) -> torch.Tensor:
@@ -200,14 +198,14 @@ def sort_count_mw(words: torch.Tensor, valid: torch.Tensor | None = None):
 
 
 def merge_compact_tables_mw(words_a, counts_a, words_b, counts_b):
-    """Merge two word count tables: concatenate, sort, sum equal
-    registers, front-pack.  Returns ``(words, counts, n_unique)``; the
-    first ``n_unique`` columns are the merged table, in order."""
-    words = torch.cat([words_a, words_b], 1)
-    counts = torch.cat([counts_a, counts_b]).to(torch.int64)
-    order = _lex_order(words)
-    swords = words[:, order]
-    _, totals, n_unique = _run_length_encode(_run_ids(swords), counts[order])
+    """Merge two *sorted* word count tables (padding columns only at the
+    tail): K9's word instance, then run ids, the weighted RLE, and K10's
+    front-packing.  Returns ``(words, counts, n_unique)``; the first
+    ``n_unique`` columns are the merged table, in order."""
+    swords, counts = merge_tables_mw(
+        words_a, counts_a.to(torch.int64), words_b, counts_b.to(torch.int64)
+    )
+    _, totals, n_unique = _run_length_encode(_run_ids(swords), counts)
     uniq = torch.where(totals > 0, swords, SENTINEL)
     return (*compact_counts(uniq, totals), n_unique)
 

@@ -6,8 +6,9 @@ counts its slab in one dispatch with the single-device multi-word chunk
 path, ``canonical_count._count_chunk_mw`` (kernel K3 for 32 <= K <= 63,
 plain torch above, then the lexicographic sort and K2 over run ids); rows
 are routed by :func:`~kmers_tpu_torch.ops.multiword.fx_hash_mw`, and each
-rank merges what it receives as ``merge_compact_tables_mw`` does (the
-lexicographic order, run ids and the weighted RLE).  Padding is a count of
+rank sorts what it receives lexicographically (an unsorted pile, so a
+sort, not the word fold's merge), then counts it by run ids and the
+weighted RLE.  Padding is a count of
 0; the port's words keep :data:`SENTINEL` free at every K, so no validity
 limb is carried.  As in the reference, no metrics batch is recorded and
 checked mode adds no check here.

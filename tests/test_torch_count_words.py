@@ -2,8 +2,8 @@
 held against the plain word reference (``reference/kmers_words.py``, plain
 torch, nothing of either package) on the CPU at K = 32, 47, 55 and 62, with
 chunks small enough that the word fold runs; ``canonical_count_bytes``
-boxes the same rows; the errors, the empty shapes and the counter
-``mw_sort_rows``.  The ``cuda`` case holds the card to the CPU."""
+boxes the same rows; the errors, the empty shapes and the counters
+``mw_sort_rows`` and ``mw_merge_rows``.  The ``cuda`` case holds the card to the CPU."""
 
 import sys
 from pathlib import Path
@@ -120,19 +120,53 @@ def test_beyond_the_reference_the_words_box_into_the_registers():
 def test_sort_rows_grow_only_under_a_profiler(monkeypatch):
     seq = _genome(11, 20_000)
     cfg = CountConfig(K=55, chunk_size=4_096)
-    seen = []
+    seen, merged = [], []
     lex_order = multiword._lex_order
+    merge = multiword.merge_tables_mw
     monkeypatch.setattr(multiword, "_lex_order", lambda w: seen.append(w.shape[1]) or lex_order(w))
+    monkeypatch.setattr(multiword, "merge_tables_mw",
+                        lambda wa, ca, wb, cb: merged.append(wa.shape[1] + wb.shape[1]) or merge(wa, ca, wb, cb))
     reset_counters()
     canonical_count_words(seq, cfg, device="cpu")
-    assert counters() == {} and seen
+    assert counters() == {} and seen and merged
     seen.clear()
+    merged.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         canonical_count_words(seq, cfg, device="cpu")
-    rows = counters()["mw_sort_rows"]
-    # every chunk's columns, then each merge's rows again: 5 chunks, 4 merges
-    assert rows == sum(seen) and len(seen) == 9 and rows > 2 * seq.size
+    got = counters()
+    # every chunk's columns are sorted once; the 4 merges of 5 chunks sort
+    # nothing and count the rows they merge
+    assert got["mw_sort_rows"] == sum(seen) and len(seen) == 5 and sum(seen) < seq.size + 5 * 55
+    assert got["mw_merge_rows"] == sum(merged) and len(merged) == 4
     reset_counters()
+
+
+@pytest.mark.parametrize("K", [40, 80])
+def test_a_word_fold_sorts_each_row_once(monkeypatch, K):
+    seq = _genome(K, 30_000)
+    chunk = 4_096
+    merged = []
+    merge = multiword.merge_tables_mw
+    monkeypatch.setattr(multiword, "merge_tables_mw",
+                        lambda wa, ca, wb, cb: merged.append(wa.shape[1] + wb.shape[1]) or merge(wa, ca, wb, cb))
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        words, counts = canonical_count_words(seq, CountConfig(K=K, chunk_size=chunk), device="cpu")
+    got = counters()
+    reset_counters()
+    # consecutive chunks share K - 1 bases; each chunk's columns are sorted
+    # once, and the level stack merges the chunk tables one fewer times
+    lengths = [min(chunk, seq.size - s) for s in range(0, seq.size - K + 1, chunk - (K - 1))]
+    assert got["mw_sort_rows"] == sum(lengths)
+    assert len(merged) == len(lengths) - 1 and got["mw_merge_rows"] == sum(merged)
+    # the last merge takes the two top tables, whose rows hold every row once
+    assert merged[-1] >= words.shape[0]
+    if K <= ref.K_MAX:
+        rows, want = ref.count_table(seq, K)
+        want_w, want_c = _as_words(rows), want.numpy()
+    else:  # beyond the reference: one chunk, no fold
+        want_w, want_c = canonical_count_words(seq, CountConfig(K=K, chunk_size=1 << 16), device="cpu")
+    assert np.array_equal(words, want_w) and np.array_equal(counts, want_c)
 
 
 @pytest.fixture
@@ -155,3 +189,18 @@ def test_the_card_equals_the_cpu(cuda_device, K):
     if K <= ref.K_MAX:
         rows, counts = ref.count_table(seq, K)
         assert np.array_equal(got_w, _as_words(rows)) and np.array_equal(got_c, counts.numpy())
+
+
+@pytest.mark.cuda
+def test_a_chromosome_at_k55_folds_by_the_word_merge_on_the_card(cuda_device):
+    from kmers_tpu_torch.ops.kernels.merge_kernel import merge_tables_mw
+
+    seq = np.concatenate([_genome(55 + s, 1_000_000) for s in range(4)])
+    cfg = CountConfig(K=55)
+    chunks = len(range(0, seq.size - 54, cfg.resolved_chunk_size - 54))
+    before = merge_tables_mw.launches
+    words, counts = canonical_count_words(seq, cfg, device=cuda_device)
+    # every merge of the fold launched the word merge; nothing fell back
+    assert chunks > 4 and merge_tables_mw.launches - before == chunks - 1
+    rows, want = ref.count_table(seq, 55)
+    assert np.array_equal(words, _as_words(rows)) and np.array_equal(counts, want.numpy())

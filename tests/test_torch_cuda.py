@@ -19,9 +19,12 @@ from kmers_tpu_torch.ops.kernels.general_kernel import (
 )
 from kmers_tpu_torch.ops.kernels.merge_kernel import (
     MERGE_TILE,
+    MERGE_WORDS,
     compact_table,
     compact_table_plain,
     merge_tables,
+    merge_tables_mw,
+    merge_tables_mw_plain,
     merge_tables_plain,
 )
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
@@ -641,6 +644,95 @@ def test_merge_tile_matches_the_source(cuda):
     fn = _build.library().k9_merge_tile
     fn.restype = ctypes.c_int
     assert fn() == MERGE_TILE
+
+
+@functools.cache
+def _word_merge_cases(W):
+    """Pairs of lexicographically sorted ``(W, n)`` word tables with counts
+    (duplicates allowed, as the merge takes them), for K9's word instance."""
+    rng = np.random.default_rng(40 + W)
+    tile = 4096  # more than the word tile at any W
+
+    def cols(n, top=4):
+        # word 0 takes `top` values, so most comparisons go past word 0
+        c = rng.integers(0, 1 << 62, (n, W))
+        c[:, 0] = rng.integers(0, top, n)
+        return c
+
+    def table(c, n_tail=0):
+        c = torch.from_numpy(np.asarray(c, dtype=np.int64).reshape(-1, W))
+        c = c[torch.from_numpy(np.lexsort(c.numpy().T[::-1].copy()))] if len(c) else c
+        if n_tail:
+            c = torch.cat([c, torch.full((n_tail, W), SENTINEL)])
+        counts = torch.from_numpy(rng.integers(1, 1 << 40, len(c)))
+        if n_tail:
+            counts[-n_tail:] = 0
+        return c.T.contiguous(), counts
+
+    shared = cols(20_000)
+    run = np.tile(cols(1), (5 * tile // 2, 1))  # one column over 2.5 tiles
+    last_word = cols(30_000)
+    last_word[:, : W - 1] = 7  # ties in every word but the last
+    empty = np.zeros((0, W), np.int64)
+    return {
+        "equal columns split across a and b": (table(np.concatenate([shared, cols(9_000)])),
+                                               table(np.concatenate([shared, cols(4_001)]))),
+        "heavy duplication": (table(cols(10_000, top=1) % 5), table(cols(7_000, top=1) % 5)),
+        "sentinel tails": (table(cols(33_333), 500), table(cols(14_001), 3)),
+        "a empty": (table(empty), table(cols(14_001))),
+        "b empty": (table(cols(33_333)), table(empty)),
+        "both empty": (table(empty), table(empty)),
+        "one row each": (table(shared[:1]), table(shared[:1])),
+        "unequal lengths": (table(cols(33_333)), table(cols(5))),
+        "a run shared across tiles": (table(np.concatenate([cols(100), run, cols(100)])),
+                                      table(np.concatenate([cols(1_500), run]))),
+        "ties in every word but the last": (table(last_word[::2]), table(last_word[1::2])),
+        "many tiles": (table(cols((1 << 20) + 3, top=1 << 20)), table(cols(700_001, top=1 << 20))),
+    }
+
+
+WORD_MERGE_CASES = list(_word_merge_cases(2))
+
+
+@pytest.mark.parametrize("name", WORD_MERGE_CASES)
+@pytest.mark.parametrize("W", MERGE_WORDS)
+def test_word_merge_kernel_matches_plain(cuda, W, name):
+    (wa, ca), (wb, cb) = _word_merge_cases(W)[name]
+    before = merge_tables_mw.launches
+    got = merge_tables_mw(wa.to(cuda), ca.to(cuda), wb.to(cuda), cb.to(cuda))
+    torch.cuda.synchronize()
+    assert merge_tables_mw.launches == before + (1 if ca.numel() + cb.numel() else 0)
+    assert got[0].is_contiguous() and got[0].shape == (W, ca.numel() + cb.numel())
+    _assert_same(got, merge_tables_mw_plain(wa, ca, wb, cb))
+
+
+@pytest.mark.parametrize("offsets,extra", [((1, 0), (0, 0)), ((0, 3), (0, 0)), ((1, 3), (5, 2)),
+                                           ((0, 0), (37, 1))])
+@pytest.mark.parametrize("W", MERGE_WORDS)
+def test_word_merge_kernel_on_strided_and_unaligned_views(cuda, W, offsets, extra):
+    # starts 8 bytes past a 16-byte boundary, and tables cut to their rows
+    # (plane stride past the length, as the level stack hands them on); odd
+    # lengths put the output's planes off 16-byte boundaries too
+    (wa, ca), (wb, cb) = _word_merge_cases(W)["equal columns split across a and b"]
+    views = []
+    for (w, c), o, e in zip(((wa, ca), (wb, cb)), offsets, extra):
+        full = torch.full((W, w.shape[1] + e), 5, dtype=torch.int64)
+        full[:, : w.shape[1]] = w
+        views += [full.to(cuda)[:, o : w.shape[1]], c.to(cuda)[o:]]
+    got = merge_tables_mw(*views)
+    torch.cuda.synchronize()
+    _assert_same(got, merge_tables_mw_plain(*(v.cpu() for v in views)))
+
+
+def test_word_merge_tile_matches_the_source(cuda):
+    from kmers_tpu_torch.ops.kernels import _build
+
+    fn = _build.library().k9w_merge_tile
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    tiles = [fn(w) for w in range(8)]
+    assert all(tiles[w] > 0 and tiles[w] % 256 == 0 for w in MERGE_WORDS)
+    assert all(tiles[w] == 0 for w in range(8) if w not in MERGE_WORDS)
 
 
 @pytest.mark.parametrize("words", [1, 2, 5])

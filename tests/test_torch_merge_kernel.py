@@ -2,7 +2,9 @@
 (``merge_tables``) and K10 (``compact_table``) against the Pallas kernels
 ``bitonic_merge_tail_pallas`` and ``compact_tail_pallas`` in interpret mode,
 the port's ``merge_compact_tables`` against the JAX one (with its fused
-Pallas tail in interpret mode, and on its default route), checked mode's
+Pallas tail in interpret mode, and on its default route), the plain
+version of K9's word instance (``merge_tables_mw``: A first on ties, its
+counter, what its wrapper refuses), checked mode's
 sorted-input contract, and K1's plain version against K7
 (``canonical_windows_bytes_flat_pallas``), the TPU kernel that K1 covers."""
 
@@ -18,10 +20,13 @@ from kmers_tpu_torch.convert import SENTINEL, keys_from_jax, keys_to_jax
 from kmers_tpu_torch.ops import count as tc
 from kmers_tpu_torch.ops.kernels.merge_kernel import (
     MERGE_TILE,
+    MERGE_WORDS,
     compact_table,
     compact_table_plain,
     merge_partitions,
     merge_tables,
+    merge_tables_mw,
+    merge_tables_mw_plain,
     merge_tables_plain,
 )
 from kmers_tpu_torch.ops.kernels.window_kernel import canonical_windows_plain
@@ -203,6 +208,66 @@ def test_merge_tables_rejects_what_the_kernel_does_not_take(bad):
     else:
         with pytest.raises(ValueError):
             merge_tables(*a, b[0].to("meta"), b[1].to("meta"))
+
+
+def _word_table(words, counts):
+    return torch.tensor(words, dtype=torch.int64).T.contiguous(), torch.tensor(counts, dtype=torch.int64)
+
+
+def test_word_merge_plain_puts_a_first_on_ties():
+    # columns tie on word 0 and differ on word 1, or tie on both
+    wa, ca = _word_table([[1, 9], [2, 0], [2, 4], [2, 4], [5, 1]], [10, 20, 21, 22, 50])
+    wb, cb = _word_table([[1, 8], [2, 4], [2, 5], [5, 1]], [100, 200, 300, 500])
+    words, counts = merge_tables_mw_plain(wa, ca, wb, cb)
+    assert words.T.tolist() == [[1, 8], [1, 9], [2, 0], [2, 4], [2, 4], [2, 4], [2, 5], [5, 1], [5, 1]]
+    assert counts.tolist() == [100, 10, 20, 21, 22, 200, 300, 50, 500]
+    # the wrapper on CPU tensors is the plain version, on views cut to their
+    # rows too
+    wide = torch.cat([wb, torch.full((2, 3), SENTINEL)], 1)
+    got = merge_tables_mw(wa, ca, wide[:, :4], cb)
+    assert torch.equal(got[0], words) and torch.equal(got[1], counts)
+
+
+@pytest.mark.parametrize("W", MERGE_WORDS)
+def test_word_merge_counts_its_rows_under_a_profiler(W):
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmers_tpu_torch.utils.profiling import counters, reset_counters
+
+    a = (torch.arange(3 * W, dtype=torch.int64).view(W, 3), torch.ones(3, dtype=torch.int64))
+    b = (torch.arange(5 * W, dtype=torch.int64).view(W, 5), torch.ones(5, dtype=torch.int64))
+    reset_counters()
+    merge_tables_mw(*a, *b)
+    assert counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        merge_tables_mw(*a, *b)
+        merge_tables_mw(*b, a[0][:, :0], a[1][:0])
+    assert counters() == {"mw_merge_rows": 8 + 5}
+    reset_counters()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "devices", "width mismatch", "count length", "rank", "one word",
+                                 "six words"])
+def test_merge_tables_mw_rejects_what_the_kernel_does_not_take(bad):
+    a = [torch.arange(8, dtype=torch.int64).view(2, 4), torch.ones(4, dtype=torch.int64)]
+    b = [torch.arange(6, dtype=torch.int64).view(2, 3), torch.ones(3, dtype=torch.int64)]
+    err = ValueError
+    if bad == "dtype":
+        b[1], err = b[1].to(torch.int32), TypeError
+    elif bad == "devices":
+        b = [b[0].to("meta"), b[1].to("meta")]
+    elif bad == "width mismatch":
+        b[0] = torch.arange(9, dtype=torch.int64).view(3, 3)
+    elif bad == "count length":
+        b[1] = torch.ones(4, dtype=torch.int64)
+    elif bad == "rank":
+        a[0] = a[0].view(8)
+    else:
+        W = 1 if bad == "one word" else max(MERGE_WORDS) + 1
+        a[0] = torch.zeros((W, 4), dtype=torch.int64)
+        b[0] = torch.zeros((W, 3), dtype=torch.int64)
+    with pytest.raises(err):
+        merge_tables_mw(*a, *b)
 
 
 def _jax_front_packed(rng, n, top=5000):

@@ -3,7 +3,9 @@ package on shared state:
 
 - ``kmers_tpu_torch.ops.multiword`` against ``kmers_tpu/ops/multiword.py``
   (windows element by element; ``sort_count_mw``, ``compact_counts`` and
-  ``merge_compact_tables_mw`` table by table, through ``words_from_jax``);
+  ``merge_compact_tables_mw`` table by table, through ``words_from_jax``,
+  the merge at every width the word merge is built for, with shared
+  columns, sentinel tails, empty tables and views cut to their rows);
 - kernel K3's plain version, ``canonical_words_plain``, against the Pallas
   ``canonical_windows_mw_pallas`` in interpret mode (whose output order is
   a tile relabelling) as a multiset of non-sentinel registers, with the
@@ -192,6 +194,70 @@ def test_merge_compact_tables_mw_matches_jax(rng, K, na, nb):
     nu = int(gn)
     assert nu == int(wn)
     assert torch.equal(gw[:, :nu], words_from_jax(wl, K)[:, :nu])
+    assert np.array_equal(gc[:nu].numpy(), np.asarray(wc)[:nu].astype(np.int64))
+    assert (gw[:, nu:] == SENTINEL).all() and (gc[nu:] == 0).all()
+
+
+def _split_tables(rng, K, bps, na, nb, shared, tail_a, tail_b):
+    """Two lexicographically sorted tables of distinct ``bps K``-bit
+    registers, ``shared`` of them in both, each followed by a sentinel
+    tail, as JAX limbs with counts; the port's words from the same limbs."""
+    M = -(-bps * K // 32)
+    # word 0 takes four values, so most comparisons go on to word 1; the
+    # top bits stay clear, so no register is the all-ones sentinel
+    low = 62 * (n_words(K, bps) - 1)
+    pool = set()
+    while len(pool) < na + nb - shared:
+        pool.add(int(rng.integers(0, 4)) << low | int.from_bytes(rng.bytes(40), "big") % (1 << low))
+    pool = list(pool)
+    common, rest = pool[:shared], pool[shared:]
+    tables = []
+    for n, own, tail in ((na, rest[: na - shared], tail_a), (nb, rest[na - shared :], tail_b)):
+        regs = sorted(set(common[: min(shared, n)]) | set(own))
+        limbs = [np.array([(r >> (32 * (M - 1 - m))) & 0xFFFFFFFF for r in regs] + [0xFFFFFFFF] * tail,
+                          dtype=np.uint32) for m in range(M)]
+        counts = np.concatenate([rng.integers(1, 1000, len(regs)), np.zeros(tail, np.int64)])
+        tables.append((limbs, counts))
+    return tables
+
+
+#: (K, bits a symbol): W = 2, 3, 4 words of nucleotides and the widest
+#: six-frame register, 5 words at K = 32
+WORD_WIDTHS = [(55, 2), (80, 2), (100, 2), (32, 8)]
+#: (na, nb, shared, sentinel tail of a, of b, plane stride past the table)
+SPLIT_CASES = {
+    "equal columns split across a and b": (300, 200, 150, 0, 0, 0),
+    "sentinel tails": (300, 200, 50, 40, 7, 0),
+    "a empty": (0, 250, 0, 0, 0, 0),
+    "b empty": (250, 0, 0, 0, 0, 0),
+    "unequal lengths": (1000, 3, 2, 0, 0, 0),
+    "cut to the live rows": (300, 200, 120, 0, 0, 37),
+}
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("K,bps", WORD_WIDTHS)
+def test_merge_compact_tables_mw_split_tables_match_jax(rng, K, bps, case):
+    na, nb, shared, tail_a, tail_b, extra = SPLIT_CASES[case]
+    (al, ac), (bl, bc) = _split_tables(rng, K, bps, na, nb, shared, tail_a, tail_b)
+    wl, wc, wn = jmw.merge_compact_tables_mw(
+        tuple(map(jnp.asarray, al)), jnp.asarray(ac), tuple(map(jnp.asarray, bl)), jnp.asarray(bc))
+    port = []
+    for limbs, counts in ((al, ac), (bl, bc)):
+        words = words_from_jax(limbs, K, bps=bps)
+        if extra:
+            # a view cut to its rows, as the level stack hands it on: the
+            # plane stride is the uncut length
+            full = torch.full((words.shape[0], words.shape[1] + extra), 7, dtype=torch.int64)
+            full[:, : words.shape[1]] = words
+            words = full[:, : words.shape[1]]
+            assert words.stride(0) != words.shape[1]
+        port += [words, torch.from_numpy(counts)]
+    gw, gc, gn = tmw.merge_compact_tables_mw(*port)
+    nu = int(gn)
+    assert gw.shape == (n_words(K, bps), port[1].numel() + port[3].numel())
+    assert nu == int(wn) == len({tuple(c) for c in gw[:, :nu].T.tolist()})
+    assert torch.equal(gw[:, :nu], words_from_jax(wl, K, bps=bps)[:, :nu])
     assert np.array_equal(gc[:nu].numpy(), np.asarray(wc)[:nu].astype(np.int64))
     assert (gw[:, nu:] == SENTINEL).all() and (gc[nu:] == 0).all()
 

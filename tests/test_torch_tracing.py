@@ -74,12 +74,13 @@ def test_count_bytes_one_chunk_and_multiword_routes():
     assert kids.count("kmers.chunk") == 3 and kids.count("kmers.fold") == 2
     # the packed words are boxed into Python ints last
     assert kids[-1] == "kmers.words"
-    # every column of the chunks of 1000, 1000 and 578 bytes is sorted, then
-    # each merge re-sorts its two tables: 961 + 961 rows, then 1922 + 539
-    sorted_rows = 1000 + 1000 + 578 + 2 * 961 + (2 * 961 + 539)
+    # every column of the chunks of 1000, 1000 and 578 bytes is sorted once;
+    # the merges take their two sorted tables: 961 + 961 rows, then 1922 + 539
+    sorted_rows = 1000 + 1000 + 578
+    merged_rows = 2 * 961 + (2 * 961 + 539)
     # two int64 words a 40-mer and a count
     assert totals == {"upload_bytes": DATA.size, "download_bytes": kmers.size * 24,
-                      "mw_sort_rows": sorted_rows}
+                      "mw_sort_rows": sorted_rows, "mw_merge_rows": merged_rows}
 
 
 def _fastq(path, n_reads=300, read_len=60):
