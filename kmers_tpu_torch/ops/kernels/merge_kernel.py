@@ -15,7 +15,8 @@ computes the functions of those networks:
   by binary search over the tables (into a scratch of
   :func:`merge_partitions` co-ranks), then each block stages its tile's A
   and B rows in shared memory with 16-byte loads, merges them into
-  registers and writes them out with 16-byte stores.
+  registers and writes them out with 16-byte stores; counter
+  ``merge_rows``.
 - :func:`merge_tables_mw`: K9's word instance, the same merge path over
   tables of W int64 word planes (``(W, n)`` keys, word 0 the most
   significant) whose rows are sorted lexicographically; A's row first on
@@ -188,15 +189,17 @@ def merge_tables(keys_a, counts_a, keys_b, counts_b):
     sorted by key, A's row first on equal keys.  Nothing is summed (the
     caller's weighted RLE does that).  A CUDA tensor launches K9 (a
     partition and a merge launch, counted once); a CPU tensor takes
-    :func:`merge_tables_plain`.
+    :func:`merge_tables_plain`.  Counter ``merge_rows``: the rows merged,
+    on either route.
     """
     tensors = (keys_a, counts_a, keys_b, counts_b)
     if any(t.dim() != 1 for t in tensors) or keys_a.shape != counts_a.shape \
             or keys_b.shape != counts_b.shape:
         raise ValueError("merge_tables takes two tables of 1-D keys and counts of one length")
+    na, nb = keys_a.shape[0], keys_b.shape[0]
+    count("merge_rows", na + nb)
     if not _route("merge_tables", tensors):
         return merge_tables_plain(*tensors)
-    na, nb = keys_a.shape[0], keys_b.shape[0]
     keys = torch.empty(na + nb, dtype=torch.int64, device=keys_a.device)
     counts = torch.empty_like(keys)
     if na + nb:

@@ -34,6 +34,7 @@ from ..ops.count import merge_compact_tables, sort_count
 from ..ops.kernels.sixframe_kernel import K4_MAX, sixframe_windows, sixframe_words
 from ..ops.multiword import merge_compact_tables_mw, sort_count_mw
 from ..utils.debug import checked_mode
+from ..utils.profiling import annotate, count
 from ._input import as_byte_array, download_table, resolve_device, upload
 from ._stream import count_stream
 
@@ -94,9 +95,14 @@ def sixframe_aa_count(
     gives ``np.zeros(0, np.uint64), np.zeros(0, np.int64)`` at every K.
     ``metrics``: an optional :class:`~kmers_tpu_torch.utils.Metrics` that
     records one batch, as the reference's.  Checked mode verifies that
-    every emitted window is counted once.
+    every emitted window is counted once.  Root span ``kmers.sixframe``;
+    counter ``aa_windows``: the windows counted.
     """
-    device = resolve_device(device)
+    with annotate("kmers.sixframe"):
+        return _sixframe_aa_count(data, config, metrics, resolve_device(device))
+
+
+def _sixframe_aa_count(data, config: SixFrameCountConfig, metrics, device):
     if metrics is not None:
         metrics.start_batch()
     arr = as_byte_array(data)
@@ -111,6 +117,7 @@ def sixframe_aa_count(
         buf, 3 * K, config.chunk_size, lambda c: _count_chunk(c, config, checked), merge
     )
     n_valid = tallies[0]
+    count("aa_windows", n_valid)
     if checked and n_valid != tallies[1]:
         raise RuntimeError(
             "checked mode: count conservation violated in the six-frame "

@@ -5,6 +5,8 @@ device; run them on a GPU host with ``python -m pytest tests/test_torch_cuda.py 
 import collections
 import ctypes
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -60,6 +62,12 @@ from kmers_tpu_torch.pipelines.canonical_count import (
 from kmers_tpu_torch.pipelines.sixframe import SixFrameCountConfig, sixframe_aa_count
 from kmers_tpu_torch.pipelines.streaming import StreamingCounter
 from kmers_tpu_torch.pipelines.tables import merge_counts_device
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from reference import sixframe_aa  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -548,6 +556,30 @@ def test_sixframe_kernels_at_tile_edges(cuda, K, case, code):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     _assert_same(got, plain(b.cpu(), K, bounds, ncbi_trans_table[code]))
+
+
+def _chromosome_cut(bases=2_000_000, seed=23):
+    """A cut of the benchmark generator's chromosome: ``chr21.json``'s keys
+    at ``bases`` bases, with the large N block cut in proportion."""
+    import json
+
+    from kmer_bench.gen import rng_for, synth_chromosome
+
+    traffic = json.loads((ROOT / "kmer_bench" / "traffic" / "chr21.json").read_text())
+    traffic.update(bases=bases, big_n_block=traffic["big_n_block"] * bases // traffic["bases"])
+    return synth_chromosome(traffic, rng_for(seed, 1))
+
+
+@pytest.mark.parametrize("K", [7, 12])
+def test_sixframe_chromosome_cut_matches_the_reference(cuda, K):
+    """The six-frame count on the card at the default chunk, K4 (K = 7) and
+    K5 (K = 12), against the plain reference (``reference/sixframe_aa.py``)."""
+    seq = _chromosome_cut()
+    kmers, counts = sixframe_aa_count(seq, SixFrameCountConfig(K=K), device="cuda")
+    want_k, want_c = sixframe_aa.count_table(seq, K)
+    assert kmers.dtype == want_k.dtype and kmers.shape == want_k.shape
+    assert (np.array_equal(kmers, want_k) if K <= 7 else kmers.tolist() == want_k.tolist())
+    assert np.array_equal(counts, want_c) and counts.max() > 1
 
 
 @pytest.mark.parametrize("K", [1, 7, 8, 15, 32])

@@ -246,6 +246,23 @@ def test_word_merge_counts_its_rows_under_a_profiler(W):
     reset_counters()
 
 
+def test_merge_counts_its_rows_under_a_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmers_tpu_torch.utils.profiling import counters, reset_counters
+
+    a = (torch.arange(3, dtype=torch.int64), torch.ones(3, dtype=torch.int64))
+    b = (torch.arange(5, dtype=torch.int64), torch.ones(5, dtype=torch.int64))
+    reset_counters()
+    merge_tables(*a, *b)
+    assert counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        merge_tables(*a, *b)
+        merge_tables(*b, a[0][:0], a[1][:0])
+    assert counters() == {"merge_rows": 8 + 5}
+    reset_counters()
+
+
 @pytest.mark.parametrize("bad", ["dtype", "devices", "width mismatch", "count length", "rank", "one word",
                                  "six words"])
 def test_merge_tables_mw_rejects_what_the_kernel_does_not_take(bad):

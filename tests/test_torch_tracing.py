@@ -5,6 +5,8 @@ torch profiler records; its counters count the bytes and rows moved; and
 with no profiler running neither a span nor a counter is touched."""
 
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,13 +14,22 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from kmers_tpu_torch import (
-    CountConfig, StreamingSketcher, canonical_count_bytes, count_fastx_stream, minhash_sketch,
+    CountConfig, SixFrameCountConfig, StreamingSketcher, canonical_count_bytes, count_fastx_stream,
+    minhash_sketch, sixframe_aa_count,
 )
 from kmers_tpu_torch import parallel as par
 from kmers_tpu_torch.io import native, stream_fastx
+from kmers_tpu_torch.ops import count as count_ops
+from kmers_tpu_torch.ops import multiword
 from kmers_tpu_torch.parallel.pipeline import _shard_with_halo
 from kmers_tpu_torch.utils import profiling
 from kmers_tpu_torch.utils.profiling import count, counters, reset_counters
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from reference import sixframe_aa  # noqa: E402
 
 K = 15
 #: 3 chunks of 1000 bases overlapping by K - 1
@@ -52,7 +63,24 @@ def _children(spans, parent):
     return [n for n, p, _, _ in spans if p == parent]
 
 
-def test_count_bytes_records_its_layers_under_one_root():
+@pytest.fixture
+def merged(monkeypatch):
+    """The summed lengths of the tables each call of K9 (``merge_tables``)
+    and of its word instance (``merge_tables_mw``) was given, by name."""
+    rows = {"merge_rows": 0, "mw_merge_rows": 0}
+
+    def spy(name, fn):
+        def merge(ka, ca, kb, cb):
+            rows[name] += ca.shape[0] + cb.shape[0]
+            return fn(ka, ca, kb, cb)
+        return merge
+
+    monkeypatch.setattr(count_ops, "merge_tables", spy("merge_rows", count_ops.merge_tables))
+    monkeypatch.setattr(multiword, "merge_tables_mw", spy("mw_merge_rows", multiword.merge_tables_mw))
+    return rows
+
+
+def test_count_bytes_records_its_layers_under_one_root(merged):
     (kmers, _), spans, totals = _traced(lambda: canonical_count_bytes(DATA, CC, device="cpu"))
     assert [n for n, p, _, _ in spans if p is None] == ["kmers.count_bytes"]
     kids = _children(spans, "kmers.count_bytes")
@@ -61,7 +89,43 @@ def test_count_bytes_records_its_layers_under_one_root():
     # each fold holds its distinct count's read; the drain queue reads once a chunk
     assert _children(spans, "kmers.fold") == ["kmers.wait", "kmers.wait"]
     assert kids.count("kmers.wait") == 3
-    assert totals == {"upload_bytes": DATA.size, "download_bytes": kmers.size * 16}
+    # K9 merged the three chunk tables in two merges
+    assert merged["merge_rows"] > 0
+    assert totals == {"upload_bytes": DATA.size, "download_bytes": kmers.size * 16,
+                      "merge_rows": merged["merge_rows"]}
+
+
+def test_count_bytes_at_k31_counts_the_rows_k9_merges(merged):
+    (kmers, counts), _, totals = _traced(
+        lambda: canonical_count_bytes(DATA, CountConfig(K=31, chunk_size=1000), device="cpu"))
+    # three chunk tables of distinct 31-mers: 970 + 970 rows, then 1940 + 530
+    assert merged["merge_rows"] == 2 * 970 + (2 * 970 + 530) == counts.sum() + 2 * 970
+    assert totals["merge_rows"] == merged["merge_rows"] and "aa_windows" not in totals
+
+
+#: six-frame input: 6 chunks of 1000 bases overlapping by 3K - 1 at K = 7,
+#: with an N block, a soft-masked run and an IUPAC code
+DATA_AA = DATA[np.random.default_rng(4).integers(0, DATA.size, 5_000)].copy()
+DATA_AA[1_200:1_300] = ord("N")
+DATA_AA[3_000:3_400] |= 0x20
+DATA_AA[4_321] = ord("R")
+
+
+@pytest.mark.parametrize("K", [7, 12])
+def test_sixframe_records_its_layers_under_one_root(merged, K):
+    cfg = SixFrameCountConfig(K=K, chunk_size=1000)
+    (kmers, counts), spans, totals = _traced(lambda: sixframe_aa_count(DATA_AA, cfg, device="cpu"))
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.sixframe"]
+    kids = _children(spans, "kmers.sixframe")
+    n_chunks = len(range(0, DATA_AA.size - 3 * K + 1, 1000 - (3 * K - 1)))
+    assert n_chunks >= 5 and kids.count("kmers.chunk") == n_chunks
+    assert kids.count("kmers.upload") == 1 and kids.count("kmers.fold") == n_chunks - 1
+    assert kids.count("kmers.download") == 2
+    # the windows counted are the reference's, and the fold's rows are the merges'
+    assert totals["aa_windows"] == int(sixframe_aa.count_table(DATA_AA, K)[1].sum()) == counts.sum()
+    rows = "merge_rows" if K <= 7 else "mw_merge_rows"
+    assert merged[rows] > 0 and totals[rows] == merged[rows]
+    assert set(totals) == {"upload_bytes", "download_bytes", "aa_windows", rows, *(("mw_sort_rows",) if K > 7 else ())}
 
 
 def test_count_bytes_one_chunk_and_multiword_routes():
@@ -172,6 +236,7 @@ def test_nothing_is_recorded_without_a_profiler(monkeypatch, tmp_path):
     canonical_count_bytes(DATA, CC, device="cpu")
     count_fastx_stream(_fastq(tmp_path / "reads.fq"), CC, batch_bytes=4096, device="cpu")
     minhash_sketch(DATA, K=K, s=20, device="cpu")
+    sixframe_aa_count(DATA_AA, SixFrameCountConfig(K=7, chunk_size=1000), device="cpu")
     par.sharded_canonical_count(DATA, par.ShardedCountConfig(K=K, chunk_size=1000), par.data_mesh(2, device="cpu"))
     assert counters() == {}
 
