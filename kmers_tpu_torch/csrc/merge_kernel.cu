@@ -1,9 +1,10 @@
-// K9: merge of two sorted count tables (one-word keys, and its word
-// instance k9w over W word planes), and K10: front-packing (stream
-// compaction) of a count table.  Together with the weighted RLE between
-// them they make up the device table fold (ops/count.py
-// merge_compact_tables; ops/multiword.py merge_compact_tables_mw for word
-// tables), which every counting path runs after its chunks.
+// K9: merge of two sorted count tables (one-word keys, its merge-reduce, and
+// its word instance k9w over W word planes), and K10: front-packing (stream
+// compaction) of a count table.  The one-word table fold (ops/count.py
+// merge_compact_tables) is K9's merge-reduce alone; the word fold
+// (ops/multiword.py merge_compact_tables_mw) is the word instance, the
+// weighted RLE and K10.  Every counting path runs one of them after its
+// chunks, and K10 front-packs every chunk table before the fold.
 //
 // K9 replaces the TPU kernel kmers_tpu/ops/pallas/merge_kernel.py
 // bitonic_merge_tail_pallas (_kernel): the in-tile compare-exchange steps of
@@ -31,6 +32,30 @@
 // tile out with 16-byte stores.  Every row is read from device memory once,
 // coalesced, and written once; only the co-ranks are read twice.  Indices
 // are int64: two 2^30-row tables fit on an 80 GB card.
+//
+// K9's merge-reduce (k9_reduce_kernel) replaces the three stages the fold
+// ran after the merge (the weighted RLE's ~15 torch launches with a binary
+// search a row, then K10's three launches), which read the merged stream
+// about six more times.  It takes K9's partition launch (at its own tile of
+// 2,048 rows; the launch also clears the status words) and one launch more.
+// Each block of 128 threads takes its tile by an atomic ticket, in launch
+// order, fetches into L2 the input of the tile kReduceAhead tickets on, and
+// merges its own as k9_merge_kernel does; then it marks run heads (a
+// key unlike the merged row before it; for the tile's first row that is the
+// larger of A[a0 - 1] and B[b0 - 1]), sums each head's run from registers
+// and shared memory, and finishes the run that reaches the tile's end by
+// reading on in A from a1 and in B from b1 (32 rows of each are staged with
+// the tile, one warp reads on from there: the common case is one row of
+// each, a run of any length stays right).  It keeps the runs with a
+// non-sentinel key and a total > 0, ranks them by a block scan, publishes
+// its count, packs its kept rows in shared memory, and finds its output
+// offset by a single-pass decoupled look-back over the tiles' status words.
+// It writes its kept rows front-packed from that offset and its holes
+// (merged rows not kept) as sentinel/0 at the table's end, both with
+// 16-byte stores, and adds its runs to the distinct count.  So each merged
+// row is read once and each output position written once: 32 bytes a merged
+// row, K9's own bound.  What it loses against that bound is the look-back's
+// wait for the slowest earlier tile still in flight (see kReduceThreads).
 //
 // K9's word instance (k9w_*, W = 2..5 words a key): the same partitioned
 // merge path over tables of W word planes, counts as the payload, rows
@@ -64,15 +89,300 @@ constexpr int kCompactTile = kCompactThreads * kCompactItems;  // rows a block
 constexpr int kCompactWarps = kCompactThreads / 32;
 constexpr int kScanThreads = 1024;
 
+// co-ranks of every tile of `tile` outputs; for the merge-reduce (`clear`
+// set) also its tiles' status words, its ticket and its distinct count, set
+// to 0
 __global__ void __launch_bounds__(kmers::kMergeThreads)
-k9_partition_kernel(kmers::MergeSpec s, int64_t tiles, int64_t* __restrict__ corank) {
-    kmers::merge_partition(s, tiles, corank);
+k9_partition_kernel(kmers::MergeSpec s, int64_t tiles, int64_t* __restrict__ corank,
+                    int64_t tile, unsigned long long* __restrict__ clear) {
+    const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (clear != nullptr && g < tiles + 2) clear[g] = 0;
+    kmers::merge_partition(s, tiles, corank, tile);
 }
 
 __global__ void __launch_bounds__(kmers::kMergeThreads, 3)
 k9_merge_kernel(kmers::MergeSpec s, const int64_t* __restrict__ corank) {
     extern __shared__ int64_t smem[];
     kmers::merge_tile<true>(s, corank, smem, smem + kmers::kMergePlane);
+}
+
+// A tile's status word in the merge-reduce's look-back: 0 until the tile
+// publishes; then kAggregate | its kept rows; then kPrefix | the kept rows of
+// it and every tile before it.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kValue = kAggregate - 1;
+
+// The merge-reduce's block: 128 threads of kMergeItems rows.  A tile of
+// 2,048 rows stages 34 KB of shared memory, so six blocks share an SM: a
+// tile waits in the look-back for the slowest of the tiles before it that
+// are still in flight (~35 % of its time at 47 M rows), and the more blocks
+// an SM holds, the more of that wait the others cover.
+constexpr int kReduceThreads = 128;
+constexpr int kReduceBlocks = 6;
+constexpr int kReduceTile = kReduceThreads * kmers::kMergeItems;
+constexpr int kReducePlane = kmers::merge_plane(kReduceTile);
+constexpr int kReduceWarps = kReduceThreads / 32;
+// Each block fetches into L2 the input of the tile kReduceAhead tickets on,
+// so that tile's staging finds it there: on an H100 at 47 M rows, 32 to 128
+// tickets ahead took the kernel 757 to 670–690 µs, 256 ahead 740, 512 903.
+constexpr int64_t kReduceAhead = 64;
+
+__device__ __forceinline__ void publish(unsigned long long* p, unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long peek(const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    return v;
+}
+
+// By a whole warp: the counts of the rows of keys[i0, n) equal to `key`,
+// summed (in a sorted table they are one run from i0 on), 32 rows a step.
+__device__ __forceinline__ unsigned long long run_from(const int64_t* __restrict__ keys,
+                                                       const int64_t* __restrict__ counts,
+                                                       int64_t i0, int64_t n, int64_t key) {
+    const int lane = threadIdx.x & 31;
+    unsigned long long sum = 0;
+    for (int64_t i = i0; i < n; i += 32) {
+        const int64_t p = i + lane;
+        const bool eq = p < n && keys[p] == key;
+        if (eq) sum += static_cast<unsigned long long>(counts[p]);
+        if (__ballot_sync(0xFFFFFFFFu, eq) != 0xFFFFFFFFu) break;
+    }
+    return warp_sum(sum);
+}
+
+// By warp 0 of tile g > 0: the kept rows of tiles 0 .. g - 1.  It reads the
+// status words of the 32 tiles before a point, nearest first, waits until
+// those up to the nearest inclusive prefix have published, and sums back to
+// it; tiles take their tickets in launch order, so every tile waited on is
+// running.
+__device__ __forceinline__ unsigned long long look_back(const unsigned long long* status,
+                                                        int64_t g) {
+    const int lane = threadIdx.x & 31;
+    unsigned long long before = 0;
+    for (int64_t top = g - 1;; top -= 32) {
+        const int64_t t = top - lane;
+        // a "tile" before tile 0 holds the prefix 0
+        unsigned long long w = t >= 0 ? peek(status + t) : kPrefix;
+        unsigned prefix, need;
+        for (;;) {
+            prefix = __ballot_sync(0xFFFFFFFFu, w >= kPrefix);
+            // lanes up to the nearest prefix, or all 32 without one
+            need = prefix ? (prefix ^ (prefix - 1)) : 0xFFFFFFFFu;
+            if (!(__ballot_sync(0xFFFFFFFFu, w < kAggregate) & need)) break;
+            if (w < kAggregate) w = peek(status + t);
+        }
+        before += warp_sum(need >> lane & 1u ? (w & kValue) : 0);
+        if (prefix) return before;
+    }
+}
+
+// The input rows of tile h (keys and counts of its A and B ranges) fetched
+// into L2 by the block, one 128-byte line a thread at a time.
+__device__ __forceinline__ void prefetch_tile(const kmers::MergeSpec& s,
+                                              const int64_t* __restrict__ corank, int64_t h) {
+    const int64_t e0 = h * kReduceTile;
+    if (e0 >= s.n) return;
+    const int64_t e1 = kmers::imin64(e0 + kReduceTile, s.n);
+    const int64_t a0 = corank[h], a1 = e1 == s.n ? s.na : corank[h + 1];
+    const int64_t b0 = e0 - a0, b1 = e1 - a1;
+    const int64_t* base[4] = {s.a + a0, s.ca + a0, s.b + b0, s.cb + b0};
+    const int64_t rows[4] = {a1 - a0, a1 - a0, b1 - b0, b1 - b0};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        for (int64_t o = threadIdx.x * 16; o < rows[q]; o += kReduceThreads * 16)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(base[q] + o));
+}
+
+// an 8-byte asynchronous copy to shared memory (waited for with the tile's)
+__device__ __forceinline__ void copy8(int64_t* dst, const int64_t* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(kmers::smem_addr(dst)), "l"(src));
+}
+
+// dst[0, len) = v with 16-byte stores from dst's first 16-byte boundary on.
+__device__ __forceinline__ void fill_range(int64_t* __restrict__ dst, int len, int64_t v) {
+    const int t = threadIdx.x;
+    const int head = (reinterpret_cast<uintptr_t>(dst) & 15) && len > 0 ? 1 : 0;
+    if (head && t == 0) dst[0] = v;
+    longlong2* w = reinterpret_cast<longlong2*>(dst + head);
+    const int pairs = (len - head) >> 1;
+    for (int q = t; q < pairs; q += kReduceThreads) w[q] = make_longlong2(v, v);
+    if (((len - head) & 1) && t == 0) dst[len - 1] = v;
+}
+
+// K9's merge-reduce of one pair (s.stride unused): status, ticket and
+// n_unique are the partition launch's cleared words.
+__global__ void __launch_bounds__(kReduceThreads, kReduceBlocks)
+k9_reduce_kernel(kmers::MergeSpec s, const int64_t* __restrict__ corank,
+                 unsigned long long* __restrict__ status, unsigned long long* __restrict__ ticket,
+                 unsigned long long* __restrict__ n_unique) {
+    constexpr int kItems = kmers::kMergeItems;
+    extern __shared__ int64_t smem[];
+    __shared__ int64_t s_tile;
+    __shared__ unsigned long long s_beyond, s_off;
+    __shared__ int s_kept[kReduceWarps], s_runs[kReduceWarps];
+    // staged with the tile (loaded by one warp after the merge instead, they
+    // cost the kernel ~4 % on an H100): A[a0 - 1] and B[b0 - 1]; the 32 rows
+    // of A from a1 and of B from b1 (keys, then counts)
+    __shared__ int64_t s_before[2];
+    __shared__ int64_t s_next[4][32];
+    int64_t* keys = smem;
+    int64_t* vals = smem + kReducePlane;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (threadIdx.x == 0) s_tile = static_cast<int64_t>(atomicAdd(ticket, 1ull));
+    __syncthreads();
+    const int64_t g = s_tile;
+    const int64_t d0 = g * kReduceTile;
+    const int64_t d1 = kmers::imin64(d0 + kReduceTile, s.n);
+    if (warp == 0) {
+        const int64_t a0 = corank[g], a1 = d1 == s.n ? s.na : corank[g + 1];
+        const int64_t b0 = d0 - a0, b1 = d1 - a1;
+        if (lane == 0 && a0 > 0) copy8(&s_before[0], s.a + a0 - 1);
+        if (lane == 1 && b0 > 0) copy8(&s_before[1], s.b + b0 - 1);
+        if (a1 + lane < s.na) {
+            copy8(&s_next[0][lane], s.a + a1 + lane);
+            copy8(&s_next[1][lane], s.ca + a1 + lane);
+        }
+        if (b1 + lane < s.nb) {
+            copy8(&s_next[2][lane], s.b + b1 + lane);
+            copy8(&s_next[3][lane], s.cb + b1 + lane);
+        }
+    }
+    prefetch_tile(s, corank, g + kReduceAhead);
+    int64_t k[kItems], v[kItems];
+    const kmers::TileRange r =
+        kmers::merge_tile_to_shared<true, kReduceThreads>(s, g, corank, keys, vals, k, v);
+    const int local = threadIdx.x * kItems;
+    const int cnt = local < r.len ? min(kItems, r.len - local) : 0;
+
+    // (1) run heads: rows whose key differs from the merged row before them;
+    // before the tile's first row, the larger of A[a0 - 1] and B[b0 - 1]
+    unsigned head = 0;
+    int64_t last = k[0];  // the key of this thread's last row
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+        if (j < cnt) {
+            bool h;
+            if (j > 0) {
+                h = k[j] != k[j > 0 ? j - 1 : 0];
+            } else if (local > 0) {
+                h = k[0] != keys[kmers::padded(local - 1)];
+            } else if (g == 0) {
+                h = true;
+            } else {
+                const int64_t a = r.a0 > 0 ? s_before[0] : s_before[1];
+                const int64_t b = r.b0 > 0 ? s_before[1] : a;
+                h = k[0] != (a > b ? a : b);
+            }
+            head |= (h ? 1u : 0u) << j;
+            last = k[j];
+        }
+    }
+    // (2) what the last run of a thread with a head sums beyond its rows, in
+    // the tile; and, by warp 0, what the tile's last run sums beyond the tile
+    unsigned long long beyond = 0;
+    bool open = false;
+    if (head && last != KMERS_SENTINEL) {
+        int p = local + cnt;
+        for (; p < r.len && keys[kmers::padded(p)] == last; ++p)
+            beyond += static_cast<unsigned long long>(vals[kmers::padded(p)]);
+        open = p == r.len;
+    }
+    if (warp == 0) {
+        const int64_t tail = keys[kmers::padded(r.len - 1)];
+        unsigned long long past = 0;
+        if (tail != KMERS_SENTINEL) {
+            const bool in_a = r.a1 + lane < s.na && s_next[0][lane] == tail;
+            const bool in_b = r.b1 + lane < s.nb && s_next[2][lane] == tail;
+            past = warp_sum((in_a ? static_cast<unsigned long long>(s_next[1][lane]) : 0ull) +
+                            (in_b ? static_cast<unsigned long long>(s_next[3][lane]) : 0ull));
+            // a run on past the 32 staged rows: read on in device memory
+            if (__all_sync(0xFFFFFFFFu, in_a)) past += run_from(s.a, s.ca, r.a1 + 32, s.na, tail);
+            if (__all_sync(0xFFFFFFFFu, in_b)) past += run_from(s.b, s.cb, r.b1 + 32, s.nb, tail);
+        }
+        if (lane == 0) s_beyond = past;
+    }
+    __syncthreads();
+
+    // (3) run totals, from the thread's last row back, into v; a head's
+    // total is its run's sum (mod 2^64, as the weighted RLE's cumsum)
+    const unsigned long long carry = beyond + (open ? s_beyond : 0ull);
+    unsigned long long acc = 0;
+    unsigned kept = 0;
+    int runs = 0;
+#pragma unroll
+    for (int j = kItems - 1; j >= 0; --j) {
+        if (j < cnt) {
+            const bool joins = j + 1 < cnt && k[j + 1 < kItems ? j + 1 : j] == k[j];
+            acc = (j == cnt - 1 ? carry : joins ? acc : 0ull) + static_cast<unsigned long long>(v[j]);
+            v[j] = static_cast<int64_t>(acc);
+            if ((head >> j & 1u) && k[j] != KMERS_SENTINEL) {
+                ++runs;
+                if (v[j] > 0) kept |= 1u << j;
+            }
+        }
+    }
+    // (4) the kept rows' ranks in the tile, and the tile's runs
+    const int c = __popc(kept);
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) runs += __shfl_xor_sync(0xFFFFFFFFu, runs, o);
+    if (lane == 31) s_kept[warp] = incl;
+    if (lane == 0) s_runs[warp] = runs;
+    __syncthreads();
+    int rank = incl - c, total = 0, tile_runs = 0;
+#pragma unroll
+    for (int w = 0; w < kReduceWarps; ++w) {
+        rank += w < warp ? s_kept[w] : 0;
+        total += s_kept[w];
+        tile_runs += s_runs[w];
+    }
+    // (5) the tile's count published; its kept rows packed in shared memory
+    // (no thread reads the merged tile after the barrier of (2))
+    if (threadIdx.x == 0) {
+        publish(status + g, (g == 0 ? kPrefix : kAggregate) | static_cast<unsigned long long>(total));
+        if (tile_runs) atomicAdd(n_unique, static_cast<unsigned long long>(tile_runs));
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+        if (kept >> j & 1u) {
+            keys[kmers::padded(rank)] = k[j];
+            vals[kmers::padded(rank)] = v[j];
+            ++rank;
+        }
+    }
+    // (6) the tile's offset by the look-back; then its kept rows written out
+    // from there, and its holes over the table's tail from its end back
+    if (warp == 0) {
+        const unsigned long long off = g == 0 ? 0ull : look_back(status, g);
+        if (lane == 0) {
+            if (g > 0) publish(status + g, kPrefix | (off + total));
+            s_off = off;
+        }
+    }
+    __syncthreads();
+    const int64_t off = static_cast<int64_t>(s_off);
+    kmers::store_range<kItems, kReduceThreads>(s.out + off, total, keys);
+    kmers::store_range<kItems, kReduceThreads>(s.out_c + off, total, vals);
+    const int holes = r.len - total;
+    const int64_t hole0 = s.n - (d0 - off) - holes;
+    fill_range(s.out + hole0, holes, KMERS_SENTINEL);
+    fill_range(s.out_c + hole0, holes, 0);
 }
 
 template <int W>
@@ -220,10 +530,52 @@ extern "C" int k9_merge_tables(const void* ka, const void* ca, long long na,
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long part_blocks = (tiles + kmers::kMergeThreads - 1) / kmers::kMergeThreads;
     k9_partition_kernel<<<static_cast<unsigned>(part_blocks), kmers::kMergeThreads, 0, st>>>(
-        s, tiles, corank);
+        s, tiles, corank, kmers::kMergeTile, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     k9_merge_kernel<<<static_cast<unsigned>(tiles), kmers::kMergeThreads, smem, st>>>(s, corank);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Rows a block of K9's merge-reduce owns
+// (kmers_tpu_torch/ops/kernels/merge_kernel.py merge_reduce_tables).
+extern "C" int k9_reduce_tile() { return kReduceTile; }
+
+// K9's merge-reduce.  keys, counts: int64[na + nb], 16-byte aligned: the
+// merge of (ka, ca) and (kb, cb), each sorted ascending by key, with equal
+// keys summed; the runs whose key is not the sentinel and whose total is
+// > 0 front-packed in key order, then sentinel/0.  scratch: int64[2 tiles +
+// 2], tiles = ceil((na + nb) / k9_reduce_tile()): the co-ranks, the tiles'
+// status words, the ticket, and last the number of runs whose key is not the
+// sentinel (kept or not), which the kernel writes.
+extern "C" int k9_merge_reduce_tables(const void* ka, const void* ca, long long na,
+                                      const void* kb, const void* cb, long long nb,
+                                      void* scratch, long long tiles, void* keys,
+                                      void* counts, void* stream) {
+    const long long n = na + nb;
+    if (na < 0 || nb < 0 || tiles != (n + kReduceTile - 1) / kReduceTile ||
+        !kmers::aligned16(keys) || !kmers::aligned16(counts))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return static_cast<int>(cudaGetLastError());
+    const auto st = static_cast<cudaStream_t>(stream);
+    kmers::MergeSpec s{static_cast<const int64_t*>(ka), static_cast<const int64_t*>(kb),
+                       static_cast<const int64_t*>(ca), static_cast<const int64_t*>(cb),
+                       na, nb, 0, n, static_cast<int64_t*>(keys),
+                       static_cast<int64_t*>(counts)};
+    auto* corank = static_cast<int64_t*>(scratch);
+    auto* status = reinterpret_cast<unsigned long long*>(corank + tiles);
+    const size_t smem = 2 * kReducePlane * sizeof(int64_t);
+    cudaError_t err = cudaFuncSetAttribute(
+        k9_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // one thread a tile, and two more for the ticket and the distinct count
+    const long long part_blocks = (tiles + 2 + kmers::kMergeThreads - 1) / kmers::kMergeThreads;
+    k9_partition_kernel<<<static_cast<unsigned>(part_blocks), kmers::kMergeThreads, 0, st>>>(
+        s, tiles, corank, kReduceTile, status);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k9_reduce_kernel<<<static_cast<unsigned>(tiles), kReduceThreads, smem, st>>>(
+        s, corank, status, status + tiles, status + tiles + 1);
     return static_cast<int>(cudaGetLastError());
 }
 

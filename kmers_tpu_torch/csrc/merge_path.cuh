@@ -1,17 +1,18 @@
-// The merge path shared by K9 (the merge of two sorted count tables),
-// K11's merge rounds (keys only) and K9's word instance (tables of W word
-// planes, at the end of this file): the co-rank search, the staging of a
-// block's input ranges in shared memory, the block's merge into registers
-// and its coalesced store.
+// The merge path shared by K9 (the merge of two sorted count tables, and its
+// merge-reduce, which sums equal keys in the same pass), K11's merge rounds
+// (keys only) and K9's word instance (tables of W word planes, at the end of
+// this file): the co-rank search, the staging of a block's input ranges in
+// shared memory, the block's merge into registers and its coalesced store.
 //
 // A merge problem is a row of pairs of ascending runs: pair p merges
 // a[p * stride, + na) with b[p * stride, + nb) into out[p * (na + nb), +
 // na + nb), A first on equal keys, and a payload (counts) moves with each
 // key where kPayload is set.  K9 is one pair; a K11 round is n / (2 run)
 // pairs of two runs of `run` keys each, laid side by side (stride 2 run).
-// The output is cut into tiles of kMergeTile positions.  A tile never
-// straddles two pairs (K9 has one; K11's pair length is a multiple of the
-// tile), so a tile is one block's work:
+// The output is cut into tiles of kMergeTile positions (K9's merge-reduce:
+// of its own block's kThreads * kMergeItems).  A tile never straddles two
+// pairs (K9 has one; K11's pair length is a multiple of the tile), so a
+// tile is one block's work:
 //
 // 1. merge_partition: one thread per tile finds the co-rank of the tile's
 //    first output (how many rows of A precede it) by binary search over its
@@ -20,7 +21,8 @@
 //    B range (at most one tile of rows in all) into shared memory with
 //    16-byte asynchronous copies (cp.async), each thread finds its own
 //    co-rank by binary search in shared memory and merges kMergeItems
-//    outputs into registers, and the block writes them out with 16-byte
+//    outputs into registers (merge_tile_to_shared, which the merge-reduce
+//    takes up from there), and the block writes them out with 16-byte
 //    stores.
 #pragma once
 
@@ -66,10 +68,11 @@ __device__ __forceinline__ I co_rank(const int64_t* a, I na, const int64_t* b, I
     return lo;
 }
 
-// Tile g's pair and its offset in that pair's output.
+// Tile g's pair and its offset in that pair's output, at `tile` outputs a
+// tile.
 __device__ __forceinline__ void tile_origin(const MergeSpec& s, int64_t g, int64_t& pair,
-                                            int64_t& d0) {
-    const int64_t o0 = g * kMergeTile;
+                                            int64_t& d0, int64_t tile = kMergeTile) {
+    const int64_t o0 = g * tile;
     const int64_t len = s.na + s.nb;
     pair = o0 / len;
     d0 = o0 - pair * len;
@@ -77,11 +80,12 @@ __device__ __forceinline__ void tile_origin(const MergeSpec& s, int64_t g, int64
 
 // (1) corank[g] = co-rank of tile g's first output in its pair
 __device__ __forceinline__ void merge_partition(const MergeSpec& s, int64_t tiles,
-                                                int64_t* __restrict__ corank) {
+                                                int64_t* __restrict__ corank,
+                                                int64_t tile = kMergeTile) {
     const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (g >= tiles) return;
     int64_t pair, d0;
-    tile_origin(s, g, pair, d0);
+    tile_origin(s, g, pair, d0, tile);
     corank[g] = co_rank<int64_t>(s.a + pair * s.stride, s.na, s.b + pair * s.stride, s.nb, d0);
 }
 
@@ -96,11 +100,12 @@ __device__ __forceinline__ int64_t* congruent(int64_t* dst0, const int64_t* src)
     return dst0 + (((reinterpret_cast<uintptr_t>(dst0) ^ reinterpret_cast<uintptr_t>(src)) >> 3) & 1);
 }
 
-// dst[0, len) = src[0, len) by the block, with asynchronous copies
-// (cp.async: no registers, all of a thread's copies in flight at once):
-// 16 bytes at a time from the first 16-byte boundary of src on.  dst must
-// agree with src modulo 16 bytes (congruent); the caller waits with
-// cp_async_wait_all and a barrier.
+// dst[0, len) = src[0, len) by the block of kThreads threads, with
+// asynchronous copies (cp.async: no registers, all of a thread's copies in
+// flight at once): 16 bytes at a time from the first 16-byte boundary of src
+// on.  dst must agree with src modulo 16 bytes (congruent); the caller waits
+// with cp_async_wait_all and a barrier.
+template <int kThreads = kMergeThreads>
 __device__ __forceinline__ void stage_range(const int64_t* __restrict__ src, int len,
                                             int64_t* dst) {
     const int t = threadIdx.x;
@@ -108,7 +113,7 @@ __device__ __forceinline__ void stage_range(const int64_t* __restrict__ src, int
     if (head && t == 0)
         asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
     const int pairs = (len - head) >> 1;
-    for (int q = t; q < pairs; q += kMergeThreads)
+    for (int q = t; q < pairs; q += kThreads)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                      ::"r"(smem_addr(dst + head + 2 * q)), "l"(src + head + 2 * q));
     if (((len - head) & 1) && t == 0)
@@ -136,17 +141,33 @@ __device__ __forceinline__ void store_tile(int64_t* __restrict__ dst, int len,
 // Outputs of the kernels are written with 16-byte stores.
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// (2) the block merges tile blockIdx.x.  `keys` and `vals` are shared
-// memory of kMergePlane words each (`vals` unused without a payload).
-template <bool kPayload>
-__device__ __forceinline__ void merge_tile(const MergeSpec& s,
-                                           const int64_t* __restrict__ corank,
-                                           int64_t* keys, int64_t* vals) {
-    const int64_t g = blockIdx.x;
+// A tile's rows: `len` outputs of its pair, merged from the pair's A rows
+// [a0, a1) and B rows [b0, b1).
+struct TileRange {
+    int64_t a0, a1, b0, b1;
+    int len;
+};
+
+// Shared-memory words of one plane of a tile of `tile` outputs (see
+// kMergePlane).
+__host__ __device__ constexpr int merge_plane(int tile) { return tile + tile / kMergeItems; }
+
+// (2a) a block of kThreads threads merges tile g of kThreads * kMergeItems
+// outputs: it leaves its outputs in the padded layout of `keys` and `vals`
+// (shared memory of merge_plane(tile) words each; `vals` unused without a
+// payload) and each thread's own kMergeItems outputs, from position
+// threadIdx.x * kMergeItems on, in k_out and v_out.
+template <bool kPayload, int kThreads = kMergeThreads>
+__device__ __forceinline__ TileRange merge_tile_to_shared(const MergeSpec& s, int64_t g,
+                                                          const int64_t* __restrict__ corank,
+                                                          int64_t* keys, int64_t* vals,
+                                                          int64_t (&k_out)[kMergeItems],
+                                                          int64_t (&v_out)[kPayload ? kMergeItems : 1]) {
+    constexpr int kTile = kThreads * kMergeItems;
     int64_t pair, d0;
-    tile_origin(s, g, pair, d0);
+    tile_origin(s, g, pair, d0, kTile);
     const int64_t pair_len = s.na + s.nb;
-    const int len = static_cast<int>(imin64(kMergeTile, s.n - g * kMergeTile));
+    const int len = static_cast<int>(imin64(kTile, s.n - g * kTile));
     const int64_t d1 = d0 + len;
     const int64_t a0 = corank[g];
     const int64_t a1 = d1 == pair_len ? s.na : corank[g + 1];
@@ -154,25 +175,23 @@ __device__ __forceinline__ void merge_tile(const MergeSpec& s,
     const int la = static_cast<int>(a1 - a0), lb = static_cast<int>(b1 - b0);
     const int64_t off_a = pair * s.stride + a0, off_b = pair * s.stride + b0;
     // A then B, each at the word that lets it copy in 16-byte pieces: at most
-    // kMergeTile + 2 words of a plane
+    // kTile + 2 words of a plane
     int64_t* sa = congruent(keys, s.a + off_a);
     int64_t* sb = congruent(sa + la, s.b + off_b);
-    stage_range(s.a + off_a, la, sa);
-    stage_range(s.b + off_b, lb, sb);
+    stage_range<kThreads>(s.a + off_a, la, sa);
+    stage_range<kThreads>(s.b + off_b, lb, sb);
     int64_t* va = nullptr;
     int64_t* vb = nullptr;
     if constexpr (kPayload) {
         va = congruent(vals, s.ca + off_a);
         vb = congruent(va + la, s.cb + off_b);
-        stage_range(s.ca + off_a, la, va);
-        stage_range(s.cb + off_b, lb, vb);
+        stage_range<kThreads>(s.ca + off_a, la, va);
+        stage_range<kThreads>(s.cb + off_b, lb, vb);
     }
     cp_async_wait_all();
     __syncthreads();
 
     const int local = threadIdx.x * kMergeItems;
-    int64_t k_out[kMergeItems];
-    int64_t v_out[kPayload ? kMergeItems : 1];
     if (local < len) {
         int i = co_rank<int>(sa, la, sb, lb, local);
         int j = local - i;
@@ -203,9 +222,23 @@ __device__ __forceinline__ void merge_tile(const MergeSpec& s,
         }
     }
     __syncthreads();
+    return TileRange{a0, a1, b0, b1, len};
+}
+
+// (2) the block merges tile blockIdx.x and writes it out.  `keys` and `vals`
+// are shared memory of kMergePlane words each (`vals` unused without a
+// payload).
+template <bool kPayload>
+__device__ __forceinline__ void merge_tile(const MergeSpec& s,
+                                           const int64_t* __restrict__ corank,
+                                           int64_t* keys, int64_t* vals) {
+    const int64_t g = blockIdx.x;
+    int64_t k_out[kMergeItems];
+    int64_t v_out[kPayload ? kMergeItems : 1];
+    const TileRange r = merge_tile_to_shared<kPayload>(s, g, corank, keys, vals, k_out, v_out);
     const int64_t o0 = g * kMergeTile;
-    store_tile(s.out + o0, len, keys);
-    if constexpr (kPayload) store_tile(s.out_c + o0, len, vals);
+    store_tile(s.out + o0, r.len, keys);
+    if constexpr (kPayload) store_tile(s.out_c + o0, r.len, vals);
 }
 
 inline int64_t merge_tiles(int64_t n) { return (n + kMergeTile - 1) / kMergeTile; }
@@ -302,8 +335,9 @@ __device__ __forceinline__ void word_merge_partition(const WordMergeSpec& s, int
 }
 
 // dst[0, len) = the outputs in the padded layout of `src` (one pad word
-// every kItems), with 16-byte stores from dst's first 16-byte boundary on.
-template <int kItems>
+// every kItems), with 16-byte stores from dst's first 16-byte boundary on,
+// by a block of kThreads threads.
+template <int kItems, int kThreads = kMergeThreads>
 __device__ __forceinline__ void store_range(int64_t* __restrict__ dst, int len,
                                             const int64_t* src) {
     const int t = threadIdx.x;
@@ -312,7 +346,7 @@ __device__ __forceinline__ void store_range(int64_t* __restrict__ dst, int len,
     if (head && t == 0) dst[0] = at(0);
     longlong2* v = reinterpret_cast<longlong2*>(dst + head);
     const int pairs = (len - head) >> 1;
-    for (int q = t; q < pairs; q += kMergeThreads)
+    for (int q = t; q < pairs; q += kThreads)
         v[q] = make_longlong2(at(head + 2 * q), at(head + 2 * q + 1));
     if (((len - head) & 1) && t == 0) dst[len - 1] = at(len - 1);
 }

@@ -10,10 +10,11 @@ rows stay sorted.  Keys are int64 registers of at most 62 bits
 (``convert.py``), counts int64.
 
 The fold merges such tables once they are front-packed
-(:func:`compact_counts`, kernel K10): :func:`merge_compact_tables` is kernel
-K9 (the merge of two sorted tables), the weighted RLE that sums equal keys,
-and K10 again.  A CUDA tensor runs the kernels, a CPU tensor their plain
-versions.
+(:func:`compact_counts`, kernel K10): :func:`merge_compact_tables` is K9's
+merge-reduce, one pass that merges two sorted tables, sums equal keys and
+front-packs the result (its plain version: K9's plain merge, the weighted
+RLE, K10's plain compaction).  A CUDA tensor runs the kernels, a CPU tensor
+their plain versions.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from ..convert import KEY_BITS_MAX, SENTINEL
 from ..utils.debug import checked_mode
-from .kernels.merge_kernel import compact_table, merge_tables
+from .kernels.merge_kernel import compact_table, merge_reduce_tables
 from .kernels.rle_kernel import rle_unit
 
 __all__ = [
@@ -114,19 +115,16 @@ def merge_compact_tables(keys_a, counts_a, keys_b, counts_b):
     Precondition (the JAX contract): both tables are sorted ascending by
     key, with sentinel rows only at the tail, i.e. front-packed (as
     :func:`compact_counts` leaves them); checked mode verifies it and
-    raises ``ValueError``.  The merge is kernel K9 (``merge_tables``), the
-    weighted RLE sums equal keys, and K10 (``compact_table``) front-packs
-    the result.  Returns ``(keys, counts, n_unique)`` of length
-    ``len(keys_a) + len(keys_b)``; the first ``n_unique`` rows are the
-    merged table, the rest sentinel/0.
+    raises ``ValueError``.  K9's merge-reduce (``merge_reduce_tables``)
+    merges them, sums equal keys and front-packs the result in one pass.
+    Returns ``(keys, counts, n_unique)`` of length ``len(keys_a) +
+    len(keys_b)``; the first ``n_unique`` rows are the merged table, the
+    rest sentinel/0.
     """
     if checked_mode():
         _check_sorted("A", keys_a)
         _check_sorted("B", keys_b)
-    keys, counts = merge_tables(
+    return merge_reduce_tables(
         keys_a.contiguous(), counts_a.to(torch.int64).contiguous(),
         keys_b.contiguous(), counts_b.to(torch.int64).contiguous(),
     )
-    uniq, totals, n_unique = _run_length_encode(keys, counts)
-    keys, counts = compact_table(uniq, totals)
-    return keys, counts, n_unique

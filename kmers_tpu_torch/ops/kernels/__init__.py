@@ -12,6 +12,7 @@ K5        ``sixframe_kernel.sixframe_words``    ``sixframe_kernel.sixframe_windo
 K6        ``general_kernel.windows_general``    ``general_kernel.windows_pallas_general``
 K8b       ``general_kernel.windows_k32``        ``window_kernel.canonical_windows_pallas`` at K = 32
 K9        ``merge_kernel.merge_tables``         ``merge_kernel.bitonic_merge_tail_pallas``
+K9        ``merge_kernel.merge_reduce_tables``  the same merge, with the weighted RLE and K10
 K10       ``merge_kernel.compact_table``        ``merge_kernel.compact_tail_pallas``
 K11       ``sort_kernel.bitonic_local_sort``    ``sort_kernel.bitonic_local_sort_pallas``
 K11       ``sort_kernel.bitonic_sort``          ``sort_kernel.bitonic_sort_pallas``

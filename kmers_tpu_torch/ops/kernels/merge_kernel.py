@@ -1,5 +1,6 @@
-"""K9, the merge of two sorted count tables, and K10, the front-packing of
-a count table: their wrappers and their plain versions.
+"""K9, the merge of two sorted count tables (and its merge-reduce, which
+sums equal keys in the same pass), and K10, the front-packing of a count
+table: their wrappers and their plain versions.
 
 Counterparts of ``kmers_tpu/ops/pallas/merge_kernel.py::bitonic_merge_tail_pallas``
 and ``::compact_tail_pallas`` (the kernels are
@@ -17,6 +18,18 @@ computes the functions of those networks:
   and B rows in shared memory with 16-byte loads, merges them into
   registers and writes them out with 16-byte stores; counter
   ``merge_rows``.
+- :func:`merge_reduce_tables`: the one-word table fold in one pass.  The
+  merge of :func:`merge_tables`, equal keys summed, the runs with a
+  non-sentinel key and a total > 0 front-packed, sentinel/0 after them, and
+  the number of runs with a non-sentinel key.  K9's partition launch and
+  one merge-reduce launch (``k9_reduce_kernel``): each block merges its tile
+  as K9 does, sums each run from its head (reading on in A and B for the run
+  that reaches the tile's end), and finds its output offset by a decoupled
+  look-back over the tiles, so each merged row is read once and each output
+  position written once.  Its plain version is the composition it replaces:
+  :func:`merge_tables_plain`, the weighted RLE of ``ops/count.py`` and
+  :func:`compact_table_plain`.  Counters ``merge_rows`` (both routes) and
+  ``merge_reduce_rows`` (the rows the kernel took).
 - :func:`merge_tables_mw`: K9's word instance, the same merge path over
   tables of W int64 word planes (``(W, n)`` keys, word 0 the most
   significant) whose rows are sorted lexicographically; A's row first on
@@ -48,6 +61,8 @@ __all__ = [
     "compact_table_plain",
     "lex_order",
     "merge_partitions",
+    "merge_reduce_tables",
+    "merge_reduce_tables_plain",
     "merge_tables",
     "merge_tables_mw",
     "merge_tables_mw_plain",
@@ -72,6 +87,19 @@ def merge_tables_plain(keys_a, counts_a, keys_b, counts_b):
     gather of the counts."""
     keys, order = torch.sort(torch.cat([keys_a, keys_b]), stable=True)
     return keys, torch.cat([counts_a, counts_b])[order]
+
+
+def merge_reduce_tables_plain(keys_a, counts_a, keys_b, counts_b):
+    """Plain torch version of :func:`merge_reduce_tables`, on any device:
+    :func:`merge_tables_plain`, the weighted run-length encoding of
+    ``ops/count.py`` (each run's total on its last row) and
+    :func:`compact_table_plain`."""
+    from ..count import _run_length_encode  # ops/count.py imports this module
+
+    keys, counts = merge_tables_plain(keys_a, counts_a, keys_b, counts_b)
+    uniq, totals, n_unique = _run_length_encode(keys, counts)
+    keys, counts = compact_table_plain(uniq, totals)
+    return keys, counts, n_unique
 
 
 #: word widths K9's word instance is built for: 2-4 words of a nucleotide
@@ -118,6 +146,22 @@ def _merge_kernel():
     v = ctypes.c_void_p
     ll = ctypes.c_longlong
     return _build.kernel("k9_merge_tables", (v, v, ll, v, v, ll, v, ll, v, v, v))
+
+
+@functools.cache
+def _merge_reduce_kernel():
+    v = ctypes.c_void_p
+    ll = ctypes.c_longlong
+    return _build.kernel("k9_merge_reduce_tables", (v, v, ll, v, v, ll, v, ll, v, v, v))
+
+
+@functools.cache
+def _reduce_tile() -> int:
+    """Rows a block of K9's merge-reduce owns, from the kernel source that
+    owns the tile size."""
+    fn = _build.library().k9_reduce_tile
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 @functools.cache
@@ -181,21 +225,26 @@ def _rows_dense(t: torch.Tensor) -> bool:
     return t.shape[-1] <= 1 or t.stride(-1) == 1
 
 
+def _check_tables(name: str, tensors) -> None:
+    keys_a, counts_a, keys_b, counts_b = tensors
+    if any(t.dim() != 1 for t in tensors) or keys_a.shape != counts_a.shape \
+            or keys_b.shape != counts_b.shape:
+        raise ValueError(f"{name} takes two tables of 1-D keys and counts of one length")
+
+
 def merge_tables(keys_a, counts_a, keys_b, counts_b):
     """Merge two count tables whose 1-D int64 ``keys`` are sorted
     ascending (padding rows, if any, only at the tail).
 
     Returns ``(keys, counts)`` of length ``len(keys_a) + len(keys_b)``,
-    sorted by key, A's row first on equal keys.  Nothing is summed (the
-    caller's weighted RLE does that).  A CUDA tensor launches K9 (a
+    sorted by key, A's row first on equal keys.  Nothing is summed
+    (:func:`merge_reduce_tables` sums).  A CUDA tensor launches K9 (a
     partition and a merge launch, counted once); a CPU tensor takes
     :func:`merge_tables_plain`.  Counter ``merge_rows``: the rows merged,
     on either route.
     """
     tensors = (keys_a, counts_a, keys_b, counts_b)
-    if any(t.dim() != 1 for t in tensors) or keys_a.shape != counts_a.shape \
-            or keys_b.shape != counts_b.shape:
-        raise ValueError("merge_tables takes two tables of 1-D keys and counts of one length")
+    _check_tables("merge_tables", tensors)
     na, nb = keys_a.shape[0], keys_b.shape[0]
     count("merge_rows", na + nb)
     if not _route("merge_tables", tensors):
@@ -215,6 +264,47 @@ def merge_tables(keys_a, counts_a, keys_b, counts_b):
         _build.check(code, "k9_merge_tables")
         merge_tables.launches += 1
     return keys, counts
+
+
+def merge_reduce_tables(keys_a, counts_a, keys_b, counts_b):
+    """Merge two count tables whose 1-D int64 ``keys`` are sorted
+    ascending (padding rows, if any, only at the tail) and sum equal keys.
+
+    Returns ``(keys, counts, n_unique)``: ``keys`` and ``counts`` of length
+    ``len(keys_a) + len(keys_b)``, the runs of equal keys whose key is not
+    :data:`~kmers_tpu_torch.convert.SENTINEL` and whose total is > 0 first,
+    in key order (each total summed mod 2^64, as int64), then sentinel/0;
+    ``n_unique`` a 0-d int64 tensor on the tables' device, the number of
+    runs whose key is not the sentinel.  A CUDA tensor launches K9's
+    partition and its merge-reduce (counted once); a CPU tensor takes
+    :func:`merge_reduce_tables_plain`.  Counters: ``merge_rows``, the rows
+    merged, on either route; ``merge_reduce_rows``, the rows the kernel
+    took (none on the plain route).
+    """
+    tensors = (keys_a, counts_a, keys_b, counts_b)
+    _check_tables("merge_reduce_tables", tensors)
+    na, nb = keys_a.shape[0], keys_b.shape[0]
+    count("merge_rows", na + nb)
+    if not _route("merge_reduce_tables", tensors):
+        return merge_reduce_tables_plain(*tensors)
+    count("merge_reduce_rows", na + nb)
+    keys = torch.empty(na + nb, dtype=torch.int64, device=keys_a.device)
+    counts = torch.empty_like(keys)
+    if not na + nb:
+        return keys, counts, torch.zeros((), dtype=torch.int64, device=keys.device)
+    tiles = -(-(na + nb) // _reduce_tile())
+    # the co-ranks, the tiles' status words, the ticket and the distinct count
+    scratch = torch.empty(2 * tiles + 2, dtype=torch.int64, device=keys.device)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _merge_reduce_kernel()(
+            keys_a.data_ptr(), counts_a.data_ptr(), na, keys_b.data_ptr(),
+            counts_b.data_ptr(), nb, scratch.data_ptr(), tiles, keys.data_ptr(),
+            counts.data_ptr(), stream,
+        )
+    _build.check(code, "k9_merge_reduce_tables")
+    merge_reduce_tables.launches += 1
+    return keys, counts, scratch[-1]
 
 
 def merge_tables_mw(words_a, counts_a, words_b, counts_b):
@@ -294,8 +384,9 @@ def compact_table(keys, counts):
     return out_k, out_c
 
 
-#: wrapper calls in this process that launched their kernel (K9's two and
-#: K10's three launches count once)
+#: wrapper calls in this process that launched their kernel (K9's two, its
+#: merge-reduce's two and K10's three launches count once)
 merge_tables.launches = 0
+merge_reduce_tables.launches = 0
 merge_tables_mw.launches = 0
 compact_table.launches = 0

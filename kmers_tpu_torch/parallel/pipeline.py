@@ -12,8 +12,8 @@ flagship:
    and kernel K2).  A slab of one chunk is one dispatch
    (:func:`sharded_count_step`); a longer slab streams through
    ``_stream.count_stream`` in chunks of ``chunk_size`` that overlap by
-   K - 1, folded on the device (K10, then K9, the weighted RLE and K10 a
-   merge: ``merge_compact_tables``).
+   K - 1, folded on the device (K10, then K9's merge-reduce a merge:
+   ``merge_compact_tables``).
 3. **Hash-prefix exchange** (:func:`exchange_and_merge`, once, on the final
    local tables): each real row goes to the rank that owns the top bits of
    its key's FxHash, in fixed buckets of ``cap`` rows over the mesh's

@@ -3,11 +3,11 @@ and streaming): overlapping chunks of one uploaded buffer, each counted
 into a table, front-packed, and folded on the device through a level stack
 of merges.
 
-The merge (``merge_compact_tables``: kernel K9, the weighted RLE, kernel
-K10; or its multi-word form) takes two *sorted* tables, with padding rows
-only at the tail.  A chunk's own table is sentinel-interspersed (padding
-between its real rows), so every table pushed on a level stack is
-front-packed by ``compact_counts`` (K10) first.  The one-chunk shortcut of
+The merge (``merge_compact_tables``: K9's merge-reduce, one pass that
+merges, sums equal keys and front-packs; or its multi-word form) takes two
+*sorted* tables, with padding rows only at the tail.  A chunk's own table
+is sentinel-interspersed (padding between its real rows), so every table
+pushed on a level stack is front-packed by ``compact_counts`` (K10) first.  The one-chunk shortcut of
 :func:`count_stream` returns a chunk's table as it is, interspersed; such a
 table must never feed a level stack, since K9 would then merge an unsorted
 input.  :func:`push_chunks`, which a caller with its own stack uses, has no

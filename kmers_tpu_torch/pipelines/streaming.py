@@ -13,7 +13,7 @@ boundaries).  Within a call, records are joined with 'N' separators, so
 results are bit-identical to counting the concatenated input with
 ``canonical_count_records``.  A batch is uploaded once and its chunks are
 views into it; every chunk's table is front-packed (kernel K10) before it
-joins the stack, whose merges run K9, the weighted RLE and K10.
+joins the stack, whose merges run K9's merge-reduce.
 """
 
 from __future__ import annotations

@@ -133,7 +133,7 @@ def _upload_table(kmers, counts, device):
 def merge_counts_device(a_kmers, a_counts, b_kmers, b_counts, device="cuda"):
     """:func:`merge_counts` on ``device``: uint64 keys go up as int64 (a
     K <= 31 register is below 2^62) and ``merge_compact_tables`` merges
-    them (kernel K9, the weighted RLE, kernel K10 on a CUDA device).  K <= 31
+    them (K9's merge-reduce on a CUDA device).  K <= 31
     tables only.  Returns ``(np.uint64, np.int64)``.
 
     Counts are int64 on the device, so no sum can wrap and no input falls

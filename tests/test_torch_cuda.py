@@ -24,6 +24,8 @@ from kmers_tpu_torch.ops.kernels.merge_kernel import (
     MERGE_WORDS,
     compact_table,
     compact_table_plain,
+    merge_reduce_tables,
+    merge_reduce_tables_plain,
     merge_tables,
     merge_tables_mw,
     merge_tables_mw_plain,
@@ -158,11 +160,11 @@ def test_slice_on_cuda_matches_cpu(cuda):
     data = _bytes(1_000_000, 11)
     cfg = CountConfig(K=31, chunk_size=1 << 18)
     k0, w0 = canonical_windows.launches, rle_unit.launches
-    m0, c0 = merge_tables.launches, compact_table.launches
+    m0, c0 = merge_reduce_tables.launches, compact_table.launches
     got = canonical_count_bytes(data, cfg, device="cuda")
     assert canonical_windows.launches - k0 == 4 and rle_unit.launches - w0 == 4
-    # the fold: 4 chunk compactions, 3 merges of one K9 and one K10 each
-    assert merge_tables.launches - m0 == 3 and compact_table.launches - c0 == 7
+    # the fold: 4 chunk compactions (K10), 3 merges of one K9 merge-reduce each
+    assert merge_reduce_tables.launches - m0 == 3 and compact_table.launches - c0 == 4
     want = canonical_count_bytes(data, cfg, device="cpu")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
@@ -670,6 +672,82 @@ def test_merge_kernel_on_unaligned_views(cuda, offsets):
     _assert_same(got, merge_tables_plain(ka[oa:], ca[oa:], kb[ob:], cb[ob:]))
 
 
+def _reduce_cases():
+    """K9's cases, and what only a sum can get wrong: zero counts, totals
+    near 2^63, a pair across a tile edge, tables that share every key."""
+    tile = MERGE_TILE
+    cases = _merge_cases()
+    (ka, ca), (kb, cb) = cases["unequal lengths"]
+    rng = np.random.default_rng(24)
+    near = torch.from_numpy((1 << 62) - rng.integers(1, 1 << 20, ka.numel()))
+    zeros = torch.from_numpy(rng.integers(0, 3, ka.numel()))
+    cases.update({
+        "identical": ((ka, ca), (ka, ca)),
+        "disjoint": ((ka[:20_000] // 2 * 2, ca[:20_000]), (ka[:14_000] // 2 * 2 + 1, cb[:14_000])),
+        "zero counts": ((ka, zeros), (ka[::3], zeros[::3])),
+        "counts near 2^62": ((ka, near), (ka[1::2], near[1::2])),
+        "an equal pair across a tile edge": (
+            (torch.arange(tile), ca[:tile]), (torch.arange(tile - 1, tile + 50), cb[:51])),
+    })
+    return cases
+
+
+REDUCE_CASES = list(_reduce_cases())
+
+
+@pytest.mark.parametrize("name", REDUCE_CASES)
+def test_merge_reduce_kernel_matches_plain(cuda, name):
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmers_tpu_torch.utils.profiling import counters, reset_counters
+
+    (ka, ca), (kb, cb) = _reduce_cases()[name]
+    n = ka.numel() + kb.numel()
+    before = merge_reduce_tables.launches
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = merge_reduce_tables(ka.to(cuda), ca.to(cuda), kb.to(cuda), cb.to(cuda))
+    torch.cuda.synchronize()
+    assert counters() == {"merge_rows": n, "merge_reduce_rows": n}
+    reset_counters()
+    assert merge_reduce_tables.launches == before + (1 if n else 0)
+    _assert_same(got, merge_reduce_tables_plain(ka, ca, kb, cb))
+
+
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (1, 3)])
+def test_merge_reduce_kernel_on_unaligned_views(cuda, offsets):
+    (ka, ca), (kb, cb) = _reduce_cases()["zero counts"]
+    oa, ob = offsets
+    args = [x.to(cuda)[o:] for x, o in ((ka, oa), (ca, oa), (kb, ob), (cb, ob))]
+    got = merge_reduce_tables(*args)
+    torch.cuda.synchronize()
+    _assert_same(got, merge_reduce_tables_plain(ka[oa:], ca[oa:], kb[ob:], cb[ob:]))
+
+
+def test_merge_reduce_kernel_at_chromosome_scale_in_two_launches(cuda):
+    # the K = 31 chromosome fold's last merge: ~33 M + ~14 M distinct rows,
+    # a fifth of B's keys also in A
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    ka = torch.sort(torch.randint(0, 1 << 62, (33_000_000,), device=cuda, generator=gen)).values
+    kb = torch.cat([ka[::12], torch.randint(0, 1 << 62, (11_250_000,), device=cuda, generator=gen)])
+    kb = torch.sort(kb).values
+    ca = torch.randint(1, 1 << 20, ka.shape, device=cuda, generator=gen)
+    cb = torch.randint(1, 1 << 20, kb.shape, device=cuda, generator=gen)
+    from torch.profiler import ProfilerActivity, profile
+
+    merge_reduce_tables(ka, ca, kb, cb)  # warm: the library is loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = merge_reduce_tables(ka, ca, kb, cb)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # K9's partition and the merge-reduce, nothing else on the card
+    assert 0 < len(device_ops) <= 4 and sum("k9_" in name for name in device_ops) == 2, device_ops
+    want = merge_reduce_tables_plain(ka, ca, kb, cb)  # torch ops on the card
+    _assert_same(got, want)
+    assert int(got[2]) == int(torch.unique(torch.cat([ka, kb])).numel())
+
+
 def test_merge_tile_matches_the_source(cuda):
     from kmers_tpu_torch.ops.kernels import _build
 
@@ -801,9 +879,9 @@ def test_merge_counts_device_on_cuda_matches_cpu(cuda):
     b = np.unique(np.concatenate([a[::3], rng.integers(0, 1 << 62, 100_000).astype(np.uint64)]))
     ac = rng.integers(1, 1 << 40, a.size)
     bc = rng.integers(1, 1 << 40, b.size)
-    before = merge_tables.launches, compact_table.launches
+    before = merge_reduce_tables.launches, compact_table.launches
     got = merge_counts_device(a, ac, b, bc, device="cuda")
-    assert (merge_tables.launches, compact_table.launches) == (before[0] + 1, before[1] + 1)
+    assert (merge_reduce_tables.launches, compact_table.launches) == (before[0] + 1, before[1])
     want = merge_counts_device(a, ac, b, bc, device="cpu")
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
@@ -943,12 +1021,12 @@ def test_cli_checkpoint_commands_on_cuda_match_cpu(cuda, tmp_path, capsys):
             d = tmp_path / f"{dev}{k}"
             main(["count", str(fa), "-k", str(k), "-o", str(d / "a"), "--device", dev])
             main(["count", str(fa), "-k", str(k), "-o", str(d / "b"), "--device", dev])
-            before = merge_tables.launches, compact_table.launches
+            before = merge_reduce_tables.launches, compact_table.launches
             main(["merge", str(d / "a"), str(d / "b"), "-o", str(d / "m"), "--device", dev])
             if dev == "cuda":
-                # K <= 31 merges on the device (one K9, one K10); K > 31 on the host
-                want = (1, 1) if k <= 31 else (0, 0)
-                assert (merge_tables.launches - before[0], compact_table.launches - before[1]) == want
+                # K <= 31 merges on the device (one K9 merge-reduce); K > 31 on the host
+                want = (1, 0) if k <= 31 else (0, 0)
+                assert (merge_reduce_tables.launches - before[0], compact_table.launches - before[1]) == want
             main(["verify", str(d / "a")])
             lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
             for line in lines:
@@ -978,13 +1056,13 @@ def test_sharded_count_on_cuda_matches_cpu(cuda, ranks, chunk):
     seq = _sharded_input(1_000_003, 21)
     mesh = par.data_mesh(1) if ranks == 1 else par.Mesh(["cuda:0"] * ranks)
     cfg = par.ShardedCountConfig(K=31, chunk_size=chunk)
-    before = canonical_windows.launches, rle_unit.launches, merge_tables.launches
+    before = canonical_windows.launches, rle_unit.launches, merge_reduce_tables.launches
     got = par.sharded_canonical_count(seq, cfg, mesh)
     shard = -(-seq.size // ranks)
     steps = len(range(0, shard, chunk - 30)) if shard > chunk else 1
     assert canonical_windows.launches - before[0] == ranks * steps
     assert rle_unit.launches - before[1] == ranks * steps
-    assert merge_tables.launches - before[2] == ranks * (steps - 1)
+    assert merge_reduce_tables.launches - before[2] == ranks * (steps - 1)
     want = canonical_count_bytes(seq, CountConfig(K=31), device="cpu")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 

@@ -2,7 +2,9 @@
 (``merge_tables``) and K10 (``compact_table``) against the Pallas kernels
 ``bitonic_merge_tail_pallas`` and ``compact_tail_pallas`` in interpret mode,
 the port's ``merge_compact_tables`` against the JAX one (with its fused
-Pallas tail in interpret mode, and on its default route), the plain
+Pallas tail in interpret mode, and on its default route), K9's
+merge-reduce (``merge_reduce_tables``, the one-word fold) against the
+composition it replaces, the JAX fold and a summed dictionary, the plain
 version of K9's word instance (``merge_tables_mw``: A first on ties, its
 counter, what its wrapper refuses), checked mode's
 sorted-input contract, and K1's plain version against K7
@@ -24,6 +26,8 @@ from kmers_tpu_torch.ops.kernels.merge_kernel import (
     compact_table,
     compact_table_plain,
     merge_partitions,
+    merge_reduce_tables,
+    merge_reduce_tables_plain,
     merge_tables,
     merge_tables_mw,
     merge_tables_mw_plain,
@@ -210,6 +214,23 @@ def test_merge_tables_rejects_what_the_kernel_does_not_take(bad):
             merge_tables(*a, b[0].to("meta"), b[1].to("meta"))
 
 
+@pytest.mark.parametrize("bad", ["dtype", "rank", "length", "devices"])
+def test_merge_reduce_tables_rejects_what_the_kernel_does_not_take(bad):
+    a = [torch.arange(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64)]
+    b = [torch.arange(3, dtype=torch.int64), torch.ones(3, dtype=torch.int64)]
+    err = ValueError
+    if bad == "dtype":
+        b[1], err = b[1].to(torch.int32), TypeError
+    elif bad == "rank":
+        a = [a[0].view(2, 2), a[1].view(2, 2)]
+    elif bad == "length":
+        b[1] = torch.ones(2, dtype=torch.int64)
+    else:
+        b = [b[0].to("meta"), b[1].to("meta")]
+    with pytest.raises(err):
+        merge_reduce_tables(*a, *b)
+
+
 def _word_table(words, counts):
     return torch.tensor(words, dtype=torch.int64).T.contiguous(), torch.tensor(counts, dtype=torch.int64)
 
@@ -352,6 +373,91 @@ def test_merge_compact_tables_matches_jax_default_route(rng, na, nb, spread, sen
     real = ca > 0
     assert int(fnu) == int(real.sum())
     assert torch.equal(fk[: int(fnu)], ka[real]) and torch.equal(fc[: int(fnu)], 2 * ca[real])
+
+
+def _reduce_cases():
+    """Pairs of sorted port tables for K9's merge-reduce, by name."""
+    tile = MERGE_TILE  # outputs a K9 block owns
+    rng = np.random.default_rng(24)
+
+    def table(keys, counts=None, seed=0):
+        keys = torch.as_tensor(keys, dtype=torch.int64)
+        if counts is None:
+            counts = np.random.default_rng(seed).integers(1, 9, keys.numel())
+        return keys, torch.as_tensor(counts, dtype=torch.int64)
+
+    def sentinel_tail(keys, n_tail):
+        keys = torch.as_tensor(keys, dtype=torch.int64).clone()
+        keys[keys.numel() - n_tail :] = SENTINEL
+        return keys
+
+    wide = torch.from_numpy(np.unique(rng.integers(0, 1 << 61, 3000)))
+    evens = torch.arange(0, 4000, 2)
+    empty = torch.zeros(0, dtype=torch.int64)
+    runs = torch.repeat_interleave(torch.arange(50), 7)
+    # 77 in a run of more than a tile of A, continued in B
+    long_a = torch.cat([torch.arange(10), torch.full((tile + 300,), 77), torch.arange(100, 110)])
+    long_b = torch.cat([torch.full((500,), 77), torch.arange(200, 210)])
+    # A's last key of merged tile 0 meets its B twin as tile 1's first row
+    edge_a, edge_b = torch.arange(tile), torch.arange(tile - 1, tile + 50)
+    near = (1 << 62) - np.random.default_rng(7).integers(1, 1 << 20, 2000)
+    zeros_a = np.random.default_rng(8).integers(0, 3, 1000)
+    zeros_b = np.random.default_rng(9).integers(0, 3, 700)
+    return {
+        "disjoint": (table(evens, seed=1), table(evens + 1, seed=2)),
+        "overlapping": (table(wide[:2000], seed=3), table(wide[1000:], seed=4)),
+        "identical": (table(wide, seed=5), table(wide, seed=5)),
+        "duplicates inside one table": (table(runs, seed=6), table(torch.arange(0, 100, 3), seed=7)),
+        "a run longer than a tile": (table(long_a, seed=8), table(long_b, seed=9)),
+        "an equal pair across a tile edge": (table(edge_a, seed=10), table(edge_b, seed=11)),
+        "sentinel tail in a": (table(sentinel_tail(wide[:1500], 40), seed=12), table(wide[700:], seed=13)),
+        "sentinel tail in b": (table(wide[:1500], seed=14), table(sentinel_tail(wide[700:], 1), seed=15)),
+        "sentinel tails in both": (table(sentinel_tail(runs, 30), seed=16),
+                                   table(sentinel_tail(wide[:500], 500), seed=17)),
+        "zero counts": (table(wide[:1000], zeros_a), table(wide[300:1000], zeros_b)),
+        "empty a": (table(empty), table(wide[:100], seed=18)),
+        "empty b": (table(wide[:100], seed=19), table(empty)),
+        "both empty": (table(empty), table(empty)),
+        "counts near 2^62": (table(wide[:1200], near[:1200]), table(wide[400:1200], near[1200:])),
+    }
+
+
+@pytest.mark.parametrize("name", list(_reduce_cases()))
+def test_merge_reduce_matches_the_composition_and_jax(name):
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmers_tpu_torch.utils.profiling import counters, reset_counters
+
+    (ka, ca), (kb, cb) = _reduce_cases()[name]
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = merge_reduce_tables(ka, ca, kb, cb)
+    # the plain route counts the rows merged, and none as the kernel's
+    assert counters() == {"merge_rows": ka.numel() + kb.numel()}
+    reset_counters()
+    # the composition the kernel replaces: K9's merge, the weighted RLE, K10
+    merged = tc._run_length_encode(*merge_tables_plain(ka, ca, kb, cb))
+    want = (*compact_table_plain(*merged[:2]), merged[2])
+    for out in (got, merge_reduce_tables_plain(ka, ca, kb, cb), tc.merge_compact_tables(ka, ca, kb, cb)):
+        assert len(out) == 3 and all(torch.equal(x, y) for x, y in zip(out, want))
+    keys, counts, n_unique = got
+    n = ka.numel() + kb.numel()
+    assert keys.shape == counts.shape == (n,) and n_unique.dim() == 0
+    # a summed dictionary: every non-sentinel key is a run; those with a
+    # total > 0 are kept, in key order, then sentinel/0
+    sums = {k: c for k, c in _summed(torch.cat([ka, kb]), torch.cat([ca, cb])).items() if k != SENTINEL}
+    kept = sorted(k for k, c in sums.items() if c > 0)
+    assert int(n_unique) == len(sums)
+    assert keys[: len(kept)].tolist() == kept and counts[: len(kept)].tolist() == [sums[k] for k in kept]
+    assert (keys[len(kept):] == SENTINEL).all() and (counts[len(kept):] == 0).all()
+    if n and int(torch.cat([ca, cb]).max()) < 1 << 31:  # the JAX package counts in int32
+        ja = (*(jnp.asarray(x) for x in keys_to_jax(ka)), jnp.asarray(ca.numpy().astype(np.int32)))
+        jb = (*(jnp.asarray(x) for x in keys_to_jax(kb)), jnp.asarray(cb.numpy().astype(np.int32)))
+        wh, wl, wc, wnu = jc.merge_compact_tables(*ja, *jb)
+        assert int(wnu) == int(n_unique)
+        m = min(n, wc.shape[0])
+        assert torch.equal(keys[:m], keys_from_jax(np.asarray(wh)[:m], np.asarray(wl)[:m]))
+        assert np.array_equal(counts[:m].numpy(), np.asarray(wc)[:m].astype(np.int64))
 
 
 def test_checked_mode_rejects_an_unsorted_table(rng):

@@ -65,8 +65,9 @@ def _children(spans, parent):
 
 @pytest.fixture
 def merged(monkeypatch):
-    """The summed lengths of the tables each call of K9 (``merge_tables``)
-    and of its word instance (``merge_tables_mw``) was given, by name."""
+    """The summed lengths of the tables each call of K9's merge-reduce
+    (``merge_reduce_tables``, the one-word fold) and of its word instance
+    (``merge_tables_mw``) was given, by name."""
     rows = {"merge_rows": 0, "mw_merge_rows": 0}
 
     def spy(name, fn):
@@ -75,7 +76,7 @@ def merged(monkeypatch):
             return fn(ka, ca, kb, cb)
         return merge
 
-    monkeypatch.setattr(count_ops, "merge_tables", spy("merge_rows", count_ops.merge_tables))
+    monkeypatch.setattr(count_ops, "merge_reduce_tables", spy("merge_rows", count_ops.merge_reduce_tables))
     monkeypatch.setattr(multiword, "merge_tables_mw", spy("mw_merge_rows", multiword.merge_tables_mw))
     return rows
 
