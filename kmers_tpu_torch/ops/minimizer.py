@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..convert import SENTINEL
+from ..utils.profiling import count
 from .hashing import fx_hash_u64
 
 __all__ = [
@@ -41,6 +42,7 @@ def _sliding_min_with(keys: torch.Tensor, extras: tuple, W: int):
     cur = (keys, pos) + tuple(extras)
 
     def comb(a, b):
+        count("minimum_rows", a[0].shape[0])
         a_lt = (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] < b[1]))
         return tuple(torch.where(a_lt, x, y) for x, y in zip(a, b))
 

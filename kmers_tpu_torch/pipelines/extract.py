@@ -9,6 +9,11 @@ K = 32 instance (``windows_k32``, kernel K8b) gives the registers and a
 separate validity mask.  Values are returned as ``np.uint64`` (a K = 32 register's
 bit pattern), positions as ``np.int64``.  ``syncmer_select`` is plain torch
 on every device, as in the reference.
+
+``minimizer_select`` uploads its input once and walks it in chunks of
+:data:`MINIMIZER_CHUNK_WINDOWS` windows, each a view of the device buffer
+with its right halo of ``W + K - 2`` bases, so that its device memory is
+bounded by the chunk and the result, not by the input.
 """
 
 from __future__ import annotations
@@ -23,30 +28,46 @@ from ..ops.kernels.general_kernel import windows_general, windows_k32
 from ..ops.minimizer import closed_syncmer_mask, minimizers, minimizers_masked
 from ..ops.windows import canonical_windows_from_codes, window_valid_mask, windows_from_codes
 from ..symbols import EncodeError
+from ..utils.profiling import annotate, count
 from ._input import ALPHABET, as_byte_array, download, resolve_device, upload
 
 __all__ = ["extract_kmers", "spaced_kmers", "minimizer_select", "syncmer_select"]
+
+#: windows of W k-mers a chunk of ``minimizer_select`` takes.  The path
+#: holds ~75 bytes a window at its peak (the encode's and the sliding
+#: minimum's int64 tensors); on an H100, a 48.1-Mb chromosome peaked at
+#: 1.65 GB in chunks of 2^24 against 3.62 GB whole, for 6 % more time a
+#: call (2^23: 0.92 GB, +11 %; 2^25: 2.53 GB, +3 %)
+MINIMIZER_CHUNK_WINDOWS = 1 << 24
 
 
 def _upload(data, device):
     return upload(as_byte_array(data), resolve_device(device))
 
 
-def _extract(buf: torch.Tensor, K: int, canonical: bool):
-    """``(windows, valid, [n_invalid, n_ambig])`` over the ``L - K + 1``
-    windows of a device byte buffer; the counts as host ints."""
+def _windows(buf: torch.Tensor, K: int, canonical: bool):
+    """``(windows, valid, counts)`` over the ``L - K + 1`` windows of a
+    device byte buffer; ``counts`` the device tensor ``[n_invalid,
+    n_ambig]`` of its bytes."""
     codes, certain, ambig = classify_2bit(buf)
     counts = torch.stack([(~(certain | ambig)).sum(), ambig.sum()])
     n = buf.shape[0] - K + 1
     if 1 <= K * 2 <= 62:
         win = windows_general(codes.to(torch.uint8), certain, K, 2, canonical)[:n]
-        return win, win != SENTINEL, counts.tolist()
+        return win, win != SENTINEL, counts
     if K == 32:
         win, valid = windows_k32(codes.to(torch.uint8), certain, canonical)
-        return win[:n], valid[:n], counts.tolist()
+        return win[:n], valid[:n], counts
     # other K: the plain windows raise the reference's errors
     windows = canonical_windows_from_codes if canonical else windows_from_codes
-    return windows(codes, K), window_valid_mask(certain, K), counts.tolist()
+    return windows(codes, K), window_valid_mask(certain, K), counts
+
+
+def _extract(buf: torch.Tensor, K: int, canonical: bool):
+    """``(windows, valid, [n_invalid, n_ambig])`` over the ``L - K + 1``
+    windows of a device byte buffer; the counts as host ints."""
+    win, valid, counts = _windows(buf, K, canonical)
+    return win, valid, counts.tolist()
 
 
 def _values(win: torch.Tensor) -> np.ndarray:
@@ -122,17 +143,51 @@ def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
     With ``skip_ambiguous=False`` the buffer must hold certain bases only;
     with ``skip_ambiguous=True`` K-mers with an ambiguous base are no
     candidates and a window without a candidate selects nothing.
+
+    The windows are taken :data:`MINIMIZER_CHUNK_WINDOWS` at a time (span
+    ``kmers.chunk``): K6 (K8b at K = 32) and the sliding minimum (span
+    ``kmers.minimum``) on the chunk's bases and its right halo, then the
+    chunk's selections without repeats, the first one compared with the
+    last window before the seam, compacted on the device.  The byte
+    classes' counts stay on the device until one read a call (span
+    ``kmers.wait``, as is each chunk's compaction, which waits for the
+    chunk's count).  Counters: ``minimizer_windows`` (the windows
+    evaluated) and ``minimizers_selected`` (the rows returned).
     """
-    buf = _upload(data, device)
-    if buf.shape[0] - K + 1 < W:
-        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    win, valid, (n_inv, n_amb) = _extract(buf, K, canonical)
-    if n_inv or (n_amb and not skip_ambiguous):
-        raise EncodeError(ALPHABET, "<ambiguous or invalid base>")
-    if skip_ambiguous:
-        kmer, pos = minimizers_masked(win, valid, W)
-    else:
-        kmer, pos = minimizers(win, W)
-    keep = pos >= 0
-    keep[1:] &= pos[1:] != pos[:-1]
-    return _values(kmer[keep]), download(pos[keep])
+    with annotate("kmers.minimizers"):
+        buf = _upload(data, device)
+        n_win = buf.shape[0] - K - W + 2
+        if n_win < 1:
+            return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        count("minimizer_windows", n_win)
+        halo = W + K - 2
+        bad = torch.zeros(2, dtype=torch.int64, device=buf.device)
+        # the pick of the last window before the chunk's first (-1: none)
+        prev = torch.full((1,), -1, dtype=torch.int64, device=buf.device)
+        kmers, positions = [], []
+        for s in range(0, n_win, MINIMIZER_CHUNK_WINDOWS):
+            e = min(s + MINIMIZER_CHUNK_WINDOWS, n_win)
+            with annotate("kmers.chunk"):
+                win, valid, counts = _windows(buf[s : e + halo], K, canonical)
+                bad += counts
+                with annotate("kmers.minimum"):
+                    if skip_ambiguous:
+                        kmer, pos = minimizers_masked(win, valid, W)
+                    else:
+                        kmer, pos = minimizers(win, W)
+                pos += s  # a window without a candidate now holds s - 1
+                keep = pos >= s
+                keep[1:] &= pos[1:] != pos[:-1]
+                keep[:1] &= pos[:1] != prev
+                prev = pos[-1:].clone()
+                with annotate("kmers.wait"):
+                    idx = torch.nonzero(keep).reshape(-1)
+                kmers.append(kmer[idx])
+                positions.append(pos[idx])
+        with annotate("kmers.wait"):
+            n_inv, n_amb = bad.tolist()
+        if n_inv or (n_amb and not skip_ambiguous):
+            raise EncodeError(ALPHABET, "<ambiguous or invalid base>")
+        pos = torch.cat(positions)
+        count("minimizers_selected", pos.shape[0])
+        return _values(torch.cat(kmers)), download(pos)

@@ -442,6 +442,36 @@ def test_extract_on_cuda_matches_cpu(cuda, K, canonical):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.fixture(scope="module")
+def chromosome_2mb():
+    """A 2-Mb cut of the benchmark generator's chromosome (chr21's keys):
+    soft masks, N blocks, IUPAC codes, repeats, the poly-A and tandem run."""
+    import json
+
+    from kmer_bench.gen import rng_for, synth_chromosome
+
+    traffic = json.loads((ROOT / "kmer_bench" / "traffic" / "chr21.json").read_text())
+    traffic.update(bases=2_000_000, big_n_block=15_000, low_complexity=20_000)
+    return synth_chromosome(traffic, rng_for(25, 1))
+
+
+@pytest.mark.parametrize("K,W", [(15, 10), (21, 11), (32, 5)])
+def test_minimizer_walk_on_cuda_matches_the_reference(cuda, monkeypatch, chromosome_2mb, K, W):
+    from reference import minimizers as ref
+
+    # chunks of 2^17 windows: 16 chunks, 15 seams
+    monkeypatch.setattr(tex, "MINIMIZER_CHUNK_WINDOWS", 1 << 17)
+    n_chunks = -(-(chromosome_2mb.size - K - W + 2) // (1 << 17))
+    assert n_chunks >= 9
+    before = windows_general.launches, windows_k32.launches
+    got = tex.minimizer_select(chromosome_2mb, K=K, W=W, canonical=True, skip_ambiguous=True, device="cuda")
+    launches = (windows_general.launches - before[0], windows_k32.launches - before[1])
+    assert launches == ((n_chunks, 0) if K <= 31 else (0, n_chunks))
+    want = ref.minimizers(chromosome_2mb, K, W)
+    assert got[0].dtype == np.uint64 and got[1].dtype == np.int64
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
 def test_spaced_syncmers_and_composition_on_cuda_match_cpu(cuda):
     rng = np.random.default_rng(6)
     clean = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, 200_000)]

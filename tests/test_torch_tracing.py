@@ -15,13 +15,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from kmers_tpu_torch import (
     CountConfig, SixFrameCountConfig, StreamingSketcher, canonical_count_bytes, count_fastx_stream,
-    minhash_sketch, sixframe_aa_count,
+    minhash_sketch, minimizer_select, sixframe_aa_count,
 )
 from kmers_tpu_torch import parallel as par
 from kmers_tpu_torch.io import native, stream_fastx
 from kmers_tpu_torch.ops import count as count_ops
 from kmers_tpu_torch.ops import multiword
 from kmers_tpu_torch.parallel.pipeline import _shard_with_halo
+from kmers_tpu_torch.pipelines import extract as extract_pipe
 from kmers_tpu_torch.utils import profiling
 from kmers_tpu_torch.utils.profiling import count, counters, reset_counters
 
@@ -194,6 +195,57 @@ def test_sketch_records_select_and_its_waits():
     assert _children(spans, "kmers.sketch") == [
         "kmers.upload", "kmers.wait", "kmers.select", "kmers.download", "kmers.wait"]
     assert totals == {"upload_bytes": data.size, "download_bytes": sketch.size * 8}
+
+
+#: minimizer input: ~100 kb with an N block and a soft-masked run, walked
+#: in chunks of 2^15 windows (4 chunks)
+DATA_MM = DATA[np.random.default_rng(5).integers(0, DATA.size, 100_000)].copy()
+DATA_MM[40_000:41_000] = ord("N")
+DATA_MM[70_000:72_000] |= 0x20
+MM_CHUNK = 1 << 15
+
+
+def _minimum_rows(n_win: int, W: int, chunk: int) -> int:
+    """The rows the doubling sliding minimum's combines write over the
+    walk's chunks: ``n - span`` each doubling round over the chunk's ``n``
+    k-mers, then the chunk's windows."""
+    total = 0
+    for s in range(0, n_win, chunk):
+        windows = min(chunk, n_win - s)
+        n, span = windows + W - 1, 1
+        while span * 2 <= W:
+            n -= span
+            total += n
+            span *= 2
+        total += windows
+    return total
+
+
+def test_minimizers_record_their_chunks_under_one_root(monkeypatch):
+    monkeypatch.setattr(extract_pipe, "MINIMIZER_CHUNK_WINDOWS", MM_CHUNK)
+    (values, positions), spans, totals = _traced(
+        lambda: minimizer_select(DATA_MM, K=15, W=10, skip_ambiguous=True, device="cpu"))
+    n_win = DATA_MM.size - 15 - 10 + 2
+    n_chunks = -(-n_win // MM_CHUNK)
+    assert n_chunks >= 3 and positions.size > 0
+    assert [n for n, p, _, _ in spans if p is None] == ["kmers.minimizers"]
+    # the root encloses every chunk, minimum and wait span of the call
+    assert _children(spans, "kmers.minimizers") == (
+        ["kmers.upload"] + ["kmers.chunk"] * n_chunks + ["kmers.wait", "kmers.download", "kmers.download"])
+    assert _children(spans, "kmers.chunk") == ["kmers.minimum", "kmers.wait"] * n_chunks
+    assert totals["minimizer_windows"] == n_win
+    assert totals["minimum_rows"] == _minimum_rows(n_win, 10, MM_CHUNK) == 4 * n_win + 16 * n_chunks
+    assert totals["minimizers_selected"] == positions.size
+    assert totals["download_bytes"] == values.nbytes + positions.nbytes
+
+
+def test_an_unprofiled_minimizer_call_records_nothing(monkeypatch):
+    reset_counters()
+    monkeypatch.setattr(profiling, "record_function", _no_record_function)
+    monkeypatch.setattr(extract_pipe, "MINIMIZER_CHUNK_WINDOWS", MM_CHUNK)
+    minimizer_select(DATA_MM, K=15, W=10, skip_ambiguous=True, device="cpu")
+    par.sharded_minimizer_select(DATA_MM, K=15, W=10, mesh=par.data_mesh(2, device="cpu"), skip_ambiguous=True)
+    assert counters() == {}
 
 
 def test_streaming_sketcher_update_is_a_root_span():
