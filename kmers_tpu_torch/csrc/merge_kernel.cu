@@ -79,9 +79,16 @@
 // the sentinel in every word and count 0.  Word planes of a (W, n) table
 // are strided by n and move together.
 #include "common.cuh"
+#include "lookback.cuh"
 #include "merge_path.cuh"
 
 namespace {
+
+using kmers::kAggregate;
+using kmers::kPrefix;
+using kmers::look_back;
+using kmers::publish;
+using kmers::warp_sum;
 
 constexpr int kCompactThreads = 256;
 constexpr int kCompactItems = 8;
@@ -106,13 +113,6 @@ k9_merge_kernel(kmers::MergeSpec s, const int64_t* __restrict__ corank) {
     kmers::merge_tile<true>(s, corank, smem, smem + kmers::kMergePlane);
 }
 
-// A tile's status word in the merge-reduce's look-back: 0 until the tile
-// publishes; then kAggregate | its kept rows; then kPrefix | the kept rows of
-// it and every tile before it.
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-constexpr unsigned long long kValue = kAggregate - 1;
-
 // The merge-reduce's block: 128 threads of kMergeItems rows.  A tile of
 // 2,048 rows stages 34 KB of shared memory, so six blocks share an SM: a
 // tile waits in the look-back for the slowest of the tiles before it that
@@ -128,22 +128,6 @@ constexpr int kReduceWarps = kReduceThreads / 32;
 // tickets ahead took the kernel 757 to 670–690 µs, 256 ahead 740, 512 903.
 constexpr int64_t kReduceAhead = 64;
 
-__device__ __forceinline__ void publish(unsigned long long* p, unsigned long long v) {
-    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long peek(const unsigned long long* p) {
-    unsigned long long v;
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-    return v;
-}
-
-__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
-#pragma unroll
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-    return v;
-}
-
 // By a whole warp: the counts of the rows of keys[i0, n) equal to `key`,
 // summed (in a sorted table they are one run from i0 on), 32 rows a step.
 __device__ __forceinline__ unsigned long long run_from(const int64_t* __restrict__ keys,
@@ -158,32 +142,6 @@ __device__ __forceinline__ unsigned long long run_from(const int64_t* __restrict
         if (__ballot_sync(0xFFFFFFFFu, eq) != 0xFFFFFFFFu) break;
     }
     return warp_sum(sum);
-}
-
-// By warp 0 of tile g > 0: the kept rows of tiles 0 .. g - 1.  It reads the
-// status words of the 32 tiles before a point, nearest first, waits until
-// those up to the nearest inclusive prefix have published, and sums back to
-// it; tiles take their tickets in launch order, so every tile waited on is
-// running.
-__device__ __forceinline__ unsigned long long look_back(const unsigned long long* status,
-                                                        int64_t g) {
-    const int lane = threadIdx.x & 31;
-    unsigned long long before = 0;
-    for (int64_t top = g - 1;; top -= 32) {
-        const int64_t t = top - lane;
-        // a "tile" before tile 0 holds the prefix 0
-        unsigned long long w = t >= 0 ? peek(status + t) : kPrefix;
-        unsigned prefix, need;
-        for (;;) {
-            prefix = __ballot_sync(0xFFFFFFFFu, w >= kPrefix);
-            // lanes up to the nearest prefix, or all 32 without one
-            need = prefix ? (prefix ^ (prefix - 1)) : 0xFFFFFFFFu;
-            if (!(__ballot_sync(0xFFFFFFFFu, w < kAggregate) & need)) break;
-            if (w < kAggregate) w = peek(status + t);
-        }
-        before += warp_sum(need >> lane & 1u ? (w & kValue) : 0);
-        if (prefix) return before;
-    }
 }
 
 // The input rows of tile h (keys and counts of its A and B ranges) fetched

@@ -16,6 +16,7 @@ K9        ``merge_kernel.merge_reduce_tables``  the same merge, with the weighte
 K10       ``merge_kernel.compact_table``        ``merge_kernel.compact_tail_pallas``
 K11       ``sort_kernel.bitonic_local_sort``    ``sort_kernel.bitonic_local_sort_pallas``
 K11       ``sort_kernel.bitonic_sort``          ``sort_kernel.bitonic_sort_pallas``
+K12       ``minimizer_kernel.ChunkMinimizers``  none: the JAX package selects minimizers in ``jnp``
 ========  ====================================  ==================================================
 
 K7 (``window_kernel.canonical_windows_bytes_flat_pallas``, the byte form

@@ -8,6 +8,13 @@ elementwise minimum over shifted tensors of (hash key, position) pairs, the
 k-mer carried along with the winner.  Hashes are int64 order keys
 (``convert.py``), so the signed comparison is the JAX package's unsigned
 one; positions are int64.
+
+Where each route runs: ``minimizer_select`` on CUDA at K <= 31 and
+W <= 256 takes kernel K12 (``ops/kernels/minimizer_kernel.py``) in place of
+:func:`minimizers` and :func:`minimizers_masked`; these run its plain route
+(the CPU, K = 32, wider windows) and the sharded driver
+(``parallel/minimizers.py``) on every device.  Syncmers
+(:func:`closed_syncmer_mask`) are plain torch everywhere.
 """
 
 from __future__ import annotations

@@ -13,7 +13,11 @@ on every device, as in the reference.
 ``minimizer_select`` uploads its input once and walks it in chunks of
 :data:`MINIMIZER_CHUNK_WINDOWS` windows, each a view of the device buffer
 with its right halo of ``W + K - 2`` bases, so that its device memory is
-bounded by the chunk and the result, not by the input.
+bounded by the chunk and the result, not by the input.  Each chunk's
+registers go to ``ops/kernels/minimizer_kernel.py::ChunkMinimizers``: on
+CUDA at K <= 31 and W <= 256 kernel K12 (the FxHash, the sliding minimum,
+the repeat drop and the compaction in one launch), otherwise the plain
+route of ``ops/minimizer.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from ..convert import SENTINEL
 from ..ops.encode import classify_2bit
 from ..ops.hashing import fx_hash_u64
 from ..ops.kernels.general_kernel import windows_general, windows_k32
-from ..ops.minimizer import closed_syncmer_mask, minimizers, minimizers_masked
+from ..ops.kernels.minimizer_kernel import ChunkMinimizers
+from ..ops.minimizer import closed_syncmer_mask
 from ..ops.windows import canonical_windows_from_codes, window_valid_mask, windows_from_codes
 from ..symbols import EncodeError
 from ..utils.profiling import annotate, count
@@ -34,10 +39,10 @@ from ._input import ALPHABET, as_byte_array, download, resolve_device, upload
 __all__ = ["extract_kmers", "spaced_kmers", "minimizer_select", "syncmer_select"]
 
 #: windows of W k-mers a chunk of ``minimizer_select`` takes.  The path
-#: holds ~75 bytes a window at its peak (the encode's and the sliding
-#: minimum's int64 tensors); on an H100, a 48.1-Mb chromosome peaked at
-#: 1.65 GB in chunks of 2^24 against 3.62 GB whole, for 6 % more time a
-#: call (2^23: 0.92 GB, +11 %; 2^25: 2.53 GB, +3 %)
+#: holds ~60-70 bytes a window at its peak (the encode's int64 tensors,
+#: K6's registers and K12's two row planes); on an H100, a 48.1-Mb
+#: chromosome peaked at 1.36 GB in chunks of 2^24 against 3.23 GB whole,
+#: for ~10 % more time a call (2^23: 0.78 GB, +7 %; 2^25: 2.26 GB, +1 %)
 MINIMIZER_CHUNK_WINDOWS = 1 << 24
 
 
@@ -145,14 +150,16 @@ def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
     candidates and a window without a candidate selects nothing.
 
     The windows are taken :data:`MINIMIZER_CHUNK_WINDOWS` at a time (span
-    ``kmers.chunk``): K6 (K8b at K = 32) and the sliding minimum (span
-    ``kmers.minimum``) on the chunk's bases and its right halo, then the
-    chunk's selections without repeats, the first one compared with the
-    last window before the seam, compacted on the device.  The byte
-    classes' counts stay on the device until one read a call (span
-    ``kmers.wait``, as is each chunk's compaction, which waits for the
-    chunk's count).  Counters: ``minimizer_windows`` (the windows
-    evaluated) and ``minimizers_selected`` (the rows returned).
+    ``kmers.chunk``): K6 (K8b at K = 32) on the chunk's bases and its right
+    halo, then the chunk's selections without repeats, the first one
+    compared with the last window before the seam, compacted on the device
+    (:class:`~kmers_tpu_torch.ops.kernels.minimizer_kernel.ChunkMinimizers`:
+    K12 or the plain route, span ``kmers.minimum``; the read of the chunk's
+    row count, span ``kmers.wait``).  The byte classes' counts stay on the
+    device until one read a call (span ``kmers.wait``).  Counters:
+    ``minimizer_windows`` (the windows evaluated), ``minimizers_selected``
+    (the rows returned), and ``ChunkMinimizers``' ``minimizer_kernel_windows``
+    and ``minimum_rows``.
     """
     with annotate("kmers.minimizers"):
         buf = _upload(data, device)
@@ -162,28 +169,17 @@ def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
         count("minimizer_windows", n_win)
         halo = W + K - 2
         bad = torch.zeros(2, dtype=torch.int64, device=buf.device)
-        # the pick of the last window before the chunk's first (-1: none)
-        prev = torch.full((1,), -1, dtype=torch.int64, device=buf.device)
+        select = ChunkMinimizers(W, skip_ambiguous, 1 <= K * 2 <= 62,
+                                 min(n_win, MINIMIZER_CHUNK_WINDOWS), buf.device)
         kmers, positions = [], []
         for s in range(0, n_win, MINIMIZER_CHUNK_WINDOWS):
             e = min(s + MINIMIZER_CHUNK_WINDOWS, n_win)
             with annotate("kmers.chunk"):
                 win, valid, counts = _windows(buf[s : e + halo], K, canonical)
                 bad += counts
-                with annotate("kmers.minimum"):
-                    if skip_ambiguous:
-                        kmer, pos = minimizers_masked(win, valid, W)
-                    else:
-                        kmer, pos = minimizers(win, W)
-                pos += s  # a window without a candidate now holds s - 1
-                keep = pos >= s
-                keep[1:] &= pos[1:] != pos[:-1]
-                keep[:1] &= pos[:1] != prev
-                prev = pos[-1:].clone()
-                with annotate("kmers.wait"):
-                    idx = torch.nonzero(keep).reshape(-1)
-                kmers.append(kmer[idx])
-                positions.append(pos[idx])
+                kmer, pos = select(win, valid, s)
+                kmers.append(kmer)
+                positions.append(pos)
         with annotate("kmers.wait"):
             n_inv, n_amb = bad.tolist()
         if n_inv or (n_amb and not skip_ambiguous):

@@ -32,7 +32,7 @@ def test_sources_are_the_kernels():
     names = {p.name for p in _build._sources()}
     assert {
         "window_kernel.cu", "rle_kernel.cu", "multiword_kernel.cu", "general_kernel.cu",
-        "sixframe_kernel.cu", "merge_kernel.cu",
+        "sixframe_kernel.cu", "merge_kernel.cu", "minimizer_kernel.cu",
     } <= names
 
 

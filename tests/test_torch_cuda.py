@@ -31,6 +31,7 @@ from kmers_tpu_torch.ops.kernels.merge_kernel import (
     merge_tables_mw_plain,
     merge_tables_plain,
 )
+from kmers_tpu_torch.ops.kernels.minimizer_kernel import MAX_W, ChunkMinimizers
 from kmers_tpu_torch.ops.kernels.multiword_kernel import canonical_words, canonical_words_plain
 from kmers_tpu_torch.ops.kernels.rle_kernel import rle_unit, rle_unit_plain
 from kmers_tpu_torch.ops.kernels.sort_kernel import (
@@ -64,6 +65,8 @@ from kmers_tpu_torch.pipelines.canonical_count import (
 from kmers_tpu_torch.pipelines.sixframe import SixFrameCountConfig, sixframe_aa_count
 from kmers_tpu_torch.pipelines.streaming import StreamingCounter
 from kmers_tpu_torch.pipelines.tables import merge_counts_device
+from kmers_tpu_torch.utils import profiling
+from kmers_tpu_torch.utils.profiling import counters, reset_counters
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -463,13 +466,119 @@ def test_minimizer_walk_on_cuda_matches_the_reference(cuda, monkeypatch, chromos
     monkeypatch.setattr(tex, "MINIMIZER_CHUNK_WINDOWS", 1 << 17)
     n_chunks = -(-(chromosome_2mb.size - K - W + 2) // (1 << 17))
     assert n_chunks >= 9
-    before = windows_general.launches, windows_k32.launches
+    before = windows_general.launches, windows_k32.launches, ChunkMinimizers.launches
     got = tex.minimizer_select(chromosome_2mb, K=K, W=W, canonical=True, skip_ambiguous=True, device="cuda")
-    launches = (windows_general.launches - before[0], windows_k32.launches - before[1])
-    assert launches == ((n_chunks, 0) if K <= 31 else (0, n_chunks))
+    launches = (windows_general.launches - before[0], windows_k32.launches - before[1],
+                ChunkMinimizers.launches - before[2])
+    # K <= 31: K6, then K12, once a chunk; K = 32: K8b and the plain route
+    assert launches == ((n_chunks, 0, n_chunks) if K <= 31 else (0, n_chunks, 0))
     want = ref.minimizers(chromosome_2mb, K, W)
     assert got[0].dtype == np.uint64 and got[1].dtype == np.int64
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def _minimizer_input(L, seed, skip):
+    """Soft-masked ACGT with a poly-A run (every key of its windows ties);
+    with ``skip`` also N blocks longer than the widest window (windows with
+    no candidate) and IUPAC codes."""
+    rng = np.random.default_rng(seed)
+    seq = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, L)].copy()
+    seq[L // 5 : L // 5 + 600] = ord("A")
+    if skip:
+        for a, n in ((L // 3, 700), (L // 2, 300), ((3 * L) // 4, 9)):
+            seq[a : a + n] = ord("N")
+        seq[rng.integers(0, L, 20)] = ord("R")
+    return seq
+
+
+def _minimizers_on_cuda(monkeypatch, seq, K, W, skip):
+    """``minimizer_select`` of ``seq`` on the card: its rows, its launches
+    of K6, K8b and K12, and its counters.  The counters count as if a
+    profiler recorded: a profiler of the host alone here would keep a later
+    profiler in the process from seeing the card."""
+    before = windows_general.launches, windows_k32.launches, ChunkMinimizers.launches
+    reset_counters()
+    with monkeypatch.context() as m:
+        m.setattr(profiling, "_profiler_enabled", lambda: True)
+        got = tex.minimizer_select(seq, K=K, W=W, canonical=True, skip_ambiguous=skip, device="cuda")
+    totals = counters()
+    launches = (windows_general.launches - before[0], windows_k32.launches - before[1],
+                ChunkMinimizers.launches - before[2])
+    return got, launches, totals
+
+
+def _same_rows(got, *wants):
+    assert got[0].dtype == np.uint64 and got[1].dtype == np.int64
+    for want in wants:
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skipping", "strict"])
+@pytest.mark.parametrize("W", [1, 2, 10, 64, MAX_W])
+@pytest.mark.parametrize("K", [1, 15, 31])
+@pytest.mark.parametrize("chunk", [4_099, 1 << 24], ids=["seams", "one_chunk"])
+def test_minimizer_kernel_matches_cpu_and_the_reference(cuda, monkeypatch, chunk, K, W, skip):
+    """K12 against the CPU's plain route and the plain reference, bit for
+    bit, on ~10 tiles of 2,048 windows: in chunks of 4,099 windows (seams
+    inside tiles) and whole; K6 and K12 once a chunk; the counters."""
+    from reference import minimizers as ref
+
+    seq = _minimizer_input(20_000, K * 1000 + W, skip)
+    monkeypatch.setattr(tex, "MINIMIZER_CHUNK_WINDOWS", chunk)
+    n_win = seq.size - K - W + 2
+    n_chunks = -(-n_win // chunk)
+    got, launches, totals = _minimizers_on_cuda(monkeypatch, seq, K, W, skip)
+    assert launches == (n_chunks, 0, n_chunks)
+    assert totals["minimizer_kernel_windows"] == totals["minimizer_windows"] == n_win
+    assert totals["minimum_rows"] == totals["minimizers_selected"] == got[1].size > 0
+    want = tex.minimizer_select(seq, K=K, W=W, canonical=True, skip_ambiguous=skip, device="cpu")
+    _same_rows(got, want, ref.minimizers(seq, K, W))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 2_047, 2_048, 2_049])
+@pytest.mark.parametrize("K,W", [(15, 10), (31, 64), (1, 2)])
+def test_minimizer_kernel_at_small_odd_chunks(cuda, monkeypatch, K, W, chunk):
+    """Seams at every window (chunk 1), at a small odd stride and around
+    one tile, over the poly-A run and N blocks."""
+    from reference import minimizers as ref
+
+    seq = _minimizer_input(3_000 if chunk < 100 else 12_000, 7, True)
+    monkeypatch.setattr(tex, "MINIMIZER_CHUNK_WINDOWS", chunk)
+    got, launches, totals = _minimizers_on_cuda(monkeypatch, seq, K, W, True)
+    assert launches[2] == -(-(seq.size - K - W + 2) // chunk)
+    want = tex.minimizer_select(seq, K=K, W=W, canonical=True, skip_ambiguous=True, device="cpu")
+    _same_rows(got, want, ref.minimizers(seq, K, W))
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skipping", "strict"])
+@pytest.mark.parametrize("extra", [-1, 0, 1, 40])
+def test_minimizer_kernel_on_inputs_of_about_one_window(cuda, monkeypatch, extra, skip):
+    """Shorter than one window (nothing), one window, two, and a few."""
+    from reference import minimizers as ref
+
+    K, W = 15, 10
+    seq = _minimizer_input(K + W - 1 + extra, 3, False)
+    got, launches, totals = _minimizers_on_cuda(monkeypatch, seq, K, W, skip)
+    assert launches[2] == (extra >= 0)
+    assert (got[1].size > 0) == (extra >= 0)
+    want = tex.minimizer_select(seq, K=K, W=W, canonical=True, skip_ambiguous=skip, device="cpu")
+    _same_rows(got, want, ref.minimizers(seq, K, W))
+
+
+@pytest.mark.parametrize("K,W", [(15, MAX_W + 1), (31, 300), (32, 10), (32, MAX_W)])
+def test_wide_windows_and_k32_take_the_plain_route_on_cuda(cuda, monkeypatch, K, W):
+    """Above the cap, and at K = 32 (a validity plane, no sentinel), the
+    card runs the plain route: no K12 launch, 0 kernel windows."""
+    from reference import minimizers as ref
+
+    seq = _minimizer_input(12_000, K + W, True)
+    monkeypatch.setattr(tex, "MINIMIZER_CHUNK_WINDOWS", 4_099)
+    n_chunks = -(-(seq.size - K - W + 2) // 4_099)
+    got, launches, totals = _minimizers_on_cuda(monkeypatch, seq, K, W, True)
+    assert launches == ((n_chunks, 0, 0) if K <= 31 else (0, n_chunks, 0))
+    assert totals["minimizer_kernel_windows"] == 0
+    want = tex.minimizer_select(seq, K=K, W=W, canonical=True, skip_ambiguous=True, device="cpu")
+    _same_rows(got, want, ref.minimizers(seq, K, W))
 
 
 def test_spaced_syncmers_and_composition_on_cuda_match_cpu(cuda):

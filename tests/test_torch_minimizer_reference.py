@@ -4,7 +4,9 @@ the CPU: values and positions exactly, at (K, W) = (15, 10), (5, 3),
 (21, 11), (31, 10) and (32, 5) (the last on K6's K = 32 instance), with
 chunks of 2^12 windows (more than 40 seams) and with one chunk; the
 reference's block size, its tie rule against the control's, and the
-reference against the JAX package's ``minimizer_select``."""
+reference against the JAX package's ``minimizer_select``.  The CPU takes
+the plain route, never K12: on K12's grid of (K, W), in both modes, it
+matches the reference and the JAX package and counts no kernel window."""
 
 import importlib
 import sys
@@ -13,8 +15,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from kmers_tpu_torch.ops.kernels.minimizer_kernel import MAX_W, ChunkMinimizers
 from kmers_tpu_torch.symbols import EncodeError
+from kmers_tpu_torch.utils.profiling import counters, reset_counters
 
 tex = importlib.import_module("kmers_tpu_torch.pipelines.extract")
 
@@ -149,3 +154,36 @@ def test_the_benchmarks_frozen_copy_agrees():
     for rightmost in (False, True):
         got = frozen.minimizers(GENOME[:60_000], 15, 10, rightmost=rightmost)
         _same(got, ref.minimizers(GENOME[:60_000], 15, 10, rightmost=rightmost))
+
+
+#: K12's grid: K at both ends of its register range and minimap2's; W from
+#: one k-mer to the kernel's cap
+K12_GRID = [(K, W) for K in (1, 15, 31) for W in (1, 2, 10, 64, MAX_W)]
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skipping", "strict"])
+@pytest.mark.parametrize("K,W", K12_GRID)
+def test_the_plain_route_on_k12s_grid(monkeypatch, K, W, skip):
+    """On the CPU every (K, W) takes the plain route (no K12 launch, 0
+    ``minimizer_kernel_windows``) and matches the reference and the JAX
+    package, across seams of an odd chunk."""
+    jex = importlib.import_module("kmers_tpu.pipelines.extract")
+    seq = GENOME[29_000:33_000] if skip else CLEAN[:4_000]
+    monkeypatch.setattr(tex, "MINIMIZER_CHUNK_WINDOWS", 1_001)
+    launches = ChunkMinimizers.launches
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tex.minimizer_select(seq, K, W, canonical=True, skip_ambiguous=skip, device="cpu")
+    totals = counters()
+    assert ChunkMinimizers.launches == launches
+    assert totals["minimizer_kernel_windows"] == 0
+    assert totals["minimizer_windows"] == seq.size - K - W + 2
+    assert totals["minimizers_selected"] == got[1].size > 0
+    _same(got, ref.minimizers(seq, K, W))
+    _same(got, jex.minimizer_select(seq, K, W, True, skip_ambiguous=skip))
+
+
+@pytest.mark.parametrize("sentinel", [True, False])
+@pytest.mark.parametrize("W", [1, 10, MAX_W, MAX_W + 1])
+def test_cpu_tensors_never_take_k12(W, sentinel):
+    assert not ChunkMinimizers(W, True, sentinel, 1 << 10, torch.device("cpu")).kernel
