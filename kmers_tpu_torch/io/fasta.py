@@ -247,18 +247,21 @@ def _read_block(f, out: np.ndarray) -> int:
 
 def _stream_fastx_file(f, batch_bytes: int):
     """Each batch's read and scan runs in the span ``kmers.parse``, closed
-    before the batch is yielded.  A block is read into one reused buffer,
-    behind the tail that the last batch carried (its partial record)."""
+    before the batch is yielded: the file read in ``kmers.read`` and the
+    scan in ``kmers.scan`` inside it.  A block is read into one reused buffer,
+    behind the tail that the last batch carried (its partial record); the
+    buffer grows, inside ``kmers.read``, when that tail leaves no room."""
     buf = np.empty(batch_bytes, np.uint8)
     n_carry = 0
     is_fastq = None
     while True:
         with annotate("kmers.parse"):
-            if buf.size < n_carry + batch_bytes:
-                grown = np.empty(n_carry + batch_bytes, np.uint8)
-                grown[:n_carry] = buf[:n_carry]
-                buf = grown
-            n = n_carry + _read_block(f, buf[n_carry : n_carry + batch_bytes])
+            with annotate("kmers.read"):
+                if buf.size < n_carry + batch_bytes:
+                    grown = np.empty(n_carry + batch_bytes, np.uint8)
+                    grown[:n_carry] = buf[:n_carry]
+                    buf = grown
+                n = n_carry + _read_block(f, buf[n_carry : n_carry + batch_bytes])
             if n == n_carry:
                 break
             if is_fastq is None:
@@ -268,13 +271,14 @@ def _stream_fastx_file(f, batch_bytes: int):
                     is_fastq = False
                 else:
                     raise ValueError("malformed FASTA/FASTQ input")
-            records, cut = _scan_batch(buf[:n], is_fastq)
+            with annotate("kmers.scan"):
+                records, cut = _scan_batch(buf[:n], is_fastq)
             n_carry = n - cut
             if cut:
                 buf[:n_carry] = buf[cut:n]
         if records is not None:
             yield records
     if n_carry:
-        with annotate("kmers.parse"):
+        with annotate("kmers.parse"), annotate("kmers.scan"):
             records = read_fastx_bytes(buf[:n_carry])
         yield records

@@ -27,6 +27,7 @@ from ..ops.multiword import _lex_order, _run_ids, fx_hash_mw
 from ..pipelines._input import ALPHABET, as_byte_array, download_table
 from ..pipelines.canonical_count import _count_chunk_mw
 from ..symbols import EncodeError
+from ..utils.profiling import annotate
 from .mesh import Mesh, data_mesh
 from .pipeline import OVERFLOW_MESSAGE, _exchange, _gather_rows, _shard_with_halo
 
@@ -86,7 +87,9 @@ def sharded_canonical_count_mw(data, K: int = 63, mesh: Mesh | None = None,
     if overflow > 0:
         raise RuntimeError(OVERFLOW_MESSAGE)
     rows = _gather_rows(merged, mesh)
-    words = rows[:, :-1].T.contiguous()
-    order = _lex_order(words)
-    words, counts = download_table(words[:, order], rows[:, -1][order])
+    with annotate("kmers.rows"):
+        words = rows[:, :-1].T.contiguous()
+        order = _lex_order(words)
+        words, counts = words[:, order], rows[:, -1][order]
+    words, counts = download_table(words, counts)
     return words_to_ints(words.T), counts

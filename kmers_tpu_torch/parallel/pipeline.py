@@ -178,13 +178,15 @@ def _shard_with_halo(arr: np.ndarray, n_dev: int, K: int, pad_byte: int = 0):
 
 def _slabs(arr: np.ndarray, n_dev: int, shard: int, halo: int, pad_byte: int) -> np.ndarray:
     """Rows ``[d * shard, (d + 1) * shard + halo)`` of ``arr`` padded with
-    ``pad_byte``: ``(n_dev, shard + halo)`` uint8."""
-    out = np.empty((n_dev, shard + halo), dtype=np.uint8)
-    for d in range(n_dev):
-        part = arr[d * shard : (d + 1) * shard + halo]
-        out[d, : part.shape[0]] = part
-        out[d, part.shape[0] :] = pad_byte
-    return out
+    ``pad_byte``: ``(n_dev, shard + halo)`` uint8, built on the host (span
+    ``kmers.slabs``)."""
+    with annotate("kmers.slabs"):
+        out = np.empty((n_dev, shard + halo), dtype=np.uint8)
+        for d in range(n_dev):
+            part = arr[d * shard : (d + 1) * shard + halo]
+            out[d, : part.shape[0]] = part
+            out[d, part.shape[0] :] = pad_byte
+        return out
 
 
 def _real_rows(keys: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -299,8 +301,9 @@ def sharded_canonical_count(data, config: ShardedCountConfig = ShardedCountConfi
         rows = _gather_rows(merged, mesh)
         keys, counts = rows[:, 0], rows[:, 1]
         if mesh.size > 1:
-            keys, order = torch.sort(keys)
-            counts = counts[order]
+            with annotate("kmers.rows"):
+                keys, order = torch.sort(keys)
+                counts = counts[order]
         kmers, counts = download_table(keys.contiguous(), counts.contiguous())
         if dbg and int(counts.sum()) != n_valid:
             # end to end: the exchange neither drops nor duplicates counts

@@ -48,6 +48,7 @@ from ..pipelines._input import as_byte_array, download_table
 from ..pipelines._stream import count_stream
 from ..pipelines.sixframe import _count_chunk
 from ..utils.debug import checked_mode
+from ..utils.profiling import annotate
 from .mesh import Mesh, data_mesh
 from .multiword import _merge_words
 from .pipeline import OVERFLOW_MESSAGE, _exchange, _gather_rows, _next_pow2, exchange_and_merge
@@ -80,15 +81,16 @@ class SixFrameCountConfig:
 
 def _sixframe_slabs(arr: np.ndarray, n_dev: int, K: int):
     """The ranks' slabs, ``(n_dev, shard + 6K)`` uint8 with 0x00 outside
-    the input, and ``shard``."""
+    the input, and ``shard``; built on the host (span ``kmers.slabs``)."""
     H = 3 * K
     shard = -(-arr.shape[0] // n_dev)
     shard += (-shard) % 3
-    rows = np.zeros((n_dev, shard + 2 * H), dtype=np.uint8)
-    for d in range(n_dev):
-        lo = d * shard - H
-        part = arr[max(lo, 0) : (d + 1) * shard + H]
-        rows[d, max(-lo, 0) : max(-lo, 0) + part.shape[0]] = part
+    with annotate("kmers.slabs"):
+        rows = np.zeros((n_dev, shard + 2 * H), dtype=np.uint8)
+        for d in range(n_dev):
+            lo = d * shard - H
+            part = arr[max(lo, 0) : (d + 1) * shard + H]
+            rows[d, max(-lo, 0) : max(-lo, 0) + part.shape[0]] = part
     return rows, shard
 
 
@@ -167,15 +169,16 @@ def sharded_sixframe_aa_count(data, config: SixFrameCountConfig = SixFrameCountC
 
     rows = _gather_rows(merged, mesh)
     counts = rows[:, -1]
-    if K <= K4_MAX:
-        keys = rows[:, 0]
-        if mesh.size > 1:
-            keys, order = torch.sort(keys)
-            counts = counts[order]
-    else:
-        keys = rows[:, :-1].T.contiguous()
-        order = _lex_order(keys)
-        keys, counts = keys[:, order], counts[order]
+    with annotate("kmers.rows"):
+        if K <= K4_MAX:
+            keys = rows[:, 0]
+            if mesh.size > 1:
+                keys, order = torch.sort(keys)
+                counts = counts[order]
+        else:
+            keys = rows[:, :-1].T.contiguous()
+            order = _lex_order(keys)
+            keys, counts = keys[:, order], counts[order]
     kmers, counts = download_table(keys.contiguous(), counts.contiguous())
     if K > K4_MAX:
         kmers = words_to_ints(kmers.T)

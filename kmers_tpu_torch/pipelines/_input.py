@@ -10,7 +10,7 @@ import torch
 
 from ..alphabets import DNAAlphabet2
 from ..io.fasta import join_records_native
-from ..utils.profiling import annotate, count
+from ..utils.profiling import annotate, count, pinned_empty_like
 
 #: the alphabet the pipelines' ``EncodeError`` carries, as in the reference
 ALPHABET = DNAAlphabet2()
@@ -79,12 +79,21 @@ def download_table(keys: torch.Tensor, counts: torch.Tensor) -> tuple[np.ndarray
     return download(keys).view(np.uint64), download(counts)
 
 
+def real_rows(keys: torch.Tensor, counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A folded table cut on the device to its real rows (count > 0), so
+    that only they cross to the host (span ``kmers.rows``).  ``keys`` is
+    ``(n,)`` or ``(W, n)``."""
+    with annotate("kmers.rows"):
+        keep = counts > 0
+        return keys[..., keep], counts[keep]
+
+
 def _download_pinned(t: torch.Tensor) -> np.ndarray | None:
-    """``t`` copied into a pinned host tensor (the copy waits for the
-    stream, so the values are complete), as numpy; None if the pinned
-    allocation fails."""
+    """``t`` copied into a pinned host tensor (``pinned_empty_like``, span
+    ``kmers.pin``; the copy waits for the stream, so the values are
+    complete), as numpy; None if the pinned allocation fails."""
     try:
-        host = torch.empty_like(t, device="cpu", pin_memory=True)
+        host = pinned_empty_like(t)
     except RuntimeError:  # too large to pin on this host: the pageable copy
         return None
     host.copy_(t)

@@ -50,7 +50,9 @@ def level_stack(merge) -> LevelStack:
 
 def push_chunks(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, stack) -> list:
     """Count the overlapping chunks of ``buf`` and push each table,
-    front-packed and cut to its distinct rows, on ``stack``.
+    front-packed and cut to its distinct rows, on ``stack`` (span
+    ``kmers.drain`` a table: K10, the cut and the push, whose merges are
+    ``kmers.fold`` spans inside it).
 
     ``span`` is the bytes a window covers (K for nucleotides, 3K for
     amino acids); each chunk sentinels its own windows that run past its
@@ -65,8 +67,9 @@ def push_chunks(buf: torch.Tensor, span: int, chunk_size: int, count_chunk, stac
         nonlocal tallies
         nu, rest = values[0], values[1:]
         tallies = rest if tallies is None else [t + v for t, v in zip(tallies, rest)]
-        keys, counts = compact_counts(*out)
-        stack.push((keys[..., :nu], counts[:nu]))
+        with annotate("kmers.drain"):
+            keys, counts = compact_counts(*out)
+            stack.push((keys[..., :nu], counts[:nu]))
 
     queue = DrainQueue(_drain)
     for start in _starts(buf.shape[0], span, chunk_size):

@@ -41,7 +41,7 @@ from ..ops.multiword import canonical_windows_mw_bytes, merge_compact_tables_mw,
 from ..symbols import EncodeError
 from ..utils.debug import checked_mode
 from ..utils.profiling import annotate
-from ._input import ALPHABET, as_byte_array, download_table, join_records_with_n, resolve_device, upload
+from ._input import ALPHABET, as_byte_array, download_table, join_records_with_n, real_rows, resolve_device, upload
 from ._stream import count_stream
 from .extract import extract_kmers
 
@@ -178,9 +178,7 @@ def canonical_count_bytes(
                 "collision or kernel bug)"
             )
 
-        # mask on the device, so only real rows cross to the host
-        keep = acc[1] > 0
-        kmers, counts = download_table(acc[0][keep], acc[1][keep])
+        kmers, counts = download_table(*real_rows(*acc))
         if metrics is not None:
             n_windows = max(buf.shape[0] - K + 1, 0)
             metrics.end_batch(
@@ -226,8 +224,7 @@ def _count_words(data, config: CountConfig, device):
         buf, K, chunk_size, lambda c: _count_chunk_mw(c, K), merge_compact_tables_mw
     )
     _check_bytes(n_invalid, n_ambig, config)
-    keep = acc[1] > 0
-    return download_table(acc[0][:, keep], acc[1][keep])
+    return download_table(*real_rows(*acc))
 
 
 def bench_input(L: int = 1 << 26) -> np.ndarray:

@@ -157,9 +157,8 @@ def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
     K12 or the plain route, span ``kmers.minimum``; the read of the chunk's
     row count, span ``kmers.wait``).  The byte classes' counts stay on the
     device until one read a call (span ``kmers.wait``).  Counters:
-    ``minimizer_windows`` (the windows evaluated), ``minimizers_selected``
-    (the rows returned), and ``ChunkMinimizers``' ``minimizer_kernel_windows``
-    and ``minimum_rows``.
+    ``minimizer_windows`` (the windows evaluated), and ``ChunkMinimizers``'
+    ``minimizer_kernel_windows`` and ``minimum_rows``.
     """
     with annotate("kmers.minimizers"):
         buf = _upload(data, device)
@@ -184,6 +183,4 @@ def minimizer_select(data, K: int = 15, W: int = 10, canonical: bool = True,
             n_inv, n_amb = bad.tolist()
         if n_inv or (n_amb and not skip_ambiguous):
             raise EncodeError(ALPHABET, "<ambiguous or invalid base>")
-        pos = torch.cat(positions)
-        count("minimizers_selected", pos.shape[0])
-        return _values(torch.cat(kmers)), download(pos)
+        return _values(torch.cat(kmers)), download(torch.cat(positions))

@@ -72,7 +72,8 @@ def _sketch_keys(buf: torch.Tensor, K: int, s: int, skip_ambiguous: bool) -> np.
     raises ``EncodeError``; an ambiguous base raises only when
     ``skip_ambiguous`` is False."""
     n_windows = buf.shape[0] - K + 1
-    keys, n_invalid, n_ambig = _hash_keys(buf, K)
+    with annotate("kmers.hash"):
+        keys, n_invalid, n_ambig = _hash_keys(buf, K)
     with annotate("kmers.wait"):
         n_invalid, n_ambig = torch.stack([n_invalid, n_ambig]).tolist()
     if n_invalid:

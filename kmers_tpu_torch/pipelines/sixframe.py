@@ -35,7 +35,7 @@ from ..ops.kernels.sixframe_kernel import K4_MAX, sixframe_windows, sixframe_wor
 from ..ops.multiword import merge_compact_tables_mw, sort_count_mw
 from ..utils.debug import checked_mode
 from ..utils.profiling import annotate, count
-from ._input import as_byte_array, download_table, resolve_device, upload
+from ._input import as_byte_array, download_table, real_rows, resolve_device, upload
 from ._stream import count_stream
 
 __all__ = ["SixFrameCountConfig", "sixframe_aa_count"]
@@ -124,9 +124,7 @@ def _sixframe_aa_count(data, config: SixFrameCountConfig, metrics, device):
             f"local count — {n_valid} valid windows but {tallies[1]} counted"
         )
 
-    # mask on the device, so only real rows cross to the host
-    keep = acc[1] > 0
-    kmers, counts = download_table(acc[0][..., keep], acc[1][keep])
+    kmers, counts = download_table(*real_rows(*acc))
     if K > K4_MAX:
         kmers = words_to_ints(kmers.T)
     if metrics is not None:

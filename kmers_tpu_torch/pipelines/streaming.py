@@ -23,7 +23,7 @@ import numpy as np
 from ..ops.count import merge_compact_tables
 from ..symbols import EncodeError
 from ..utils.profiling import annotate
-from ._input import ALPHABET, as_byte_array, download_table, join_records_with_n, resolve_device, upload
+from ._input import ALPHABET, as_byte_array, download_table, join_records_with_n, real_rows, resolve_device, upload
 from ._stream import level_stack, push_chunks
 from .canonical_count import CountConfig, _count_chunk
 
@@ -101,18 +101,17 @@ class StreamingCounter:
         Raises :class:`~kmers_tpu_torch.symbols.EncodeError` if any invalid
         (non-IUPAC) byte was seen in any batch, and ``RuntimeError`` if
         window conservation fails: every valid window must be counted
-        exactly once, so a mismatch means a kernel bug."""
+        exactly once, so a mismatch means a kernel bug (span
+        ``kmers.check``: the host's sum of the downloaded counts)."""
         with annotate("kmers.finalize"):
             self._done = True
             if self._n_invalid:
                 raise EncodeError(ALPHABET, "<stream input>")
             if not len(self._stack):
                 return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-            keys, counts = self._stack.fold()
-            # mask on the device, so only real rows cross to the host
-            keep = counts > 0
-            kmers, counts = download_table(keys[keep], counts[keep])
-            counted = int(counts.sum())
+            kmers, counts = download_table(*real_rows(*self._stack.fold()))
+            with annotate("kmers.check"):
+                counted = int(counts.sum())
             if counted != self._n_valid:
                 raise RuntimeError(
                     f"window conservation violated: {self._n_valid} valid "

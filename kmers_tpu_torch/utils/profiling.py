@@ -15,6 +15,8 @@ timeline, on the profiler's clock, so the pipelines' spans (``kmers.*``)
 sit beside the kernels and copies they issue.  :func:`count` adds to a
 named counter.  Both act only while a torch profiler records; otherwise a
 span is one check of the profiler's state and a counter is not touched.
+:func:`pinned_empty_like` is the port's one pinned host allocation, with
+its own span and counters.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 __all__ = [
     "trace", "annotate", "count", "counters", "reset_counters", "device_op_times", "profile_step",
+    "pinned_empty_like",
 ]
 
 #: whether a torch profiler records (legacy or kineto): the spans' and
@@ -81,6 +84,35 @@ def count(name: str, value) -> None:
     if isinstance(total, torch.Tensor) and isinstance(value, torch.Tensor):
         value = value.to(total.device, non_blocking=True)
     _counters[name] = total + value
+
+
+def pinned_empty_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised host tensor shaped as ``t``, in pinned memory from
+    torch's caching host allocator: every pinned allocation of the port
+    passes here.  While a torch profiler records: span ``kmers.pin``
+    around the allocation (``cudaHostAlloc`` when the cache grows),
+    counter ``pinned_bytes`` (the bytes asked for) and ``pinned_new_bytes``
+    (the growth of the allocator's ``allocated_bytes.allocated`` across
+    the allocation: the bytes it had to pin anew, each new block rounded up
+    to a power of two, so a miss can count more than it asked for; 0 when
+    a cached block served the request).  A failed allocation raises and
+    counts nothing."""
+    if not _profiler_enabled():
+        return torch.empty_like(t, device="cpu", pin_memory=True)
+    with record_function("kmers.pin"):
+        before = _pinned_total()
+        host = torch.empty_like(t, device="cpu", pin_memory=True)
+        count("pinned_bytes", host.nbytes)
+        count("pinned_new_bytes", _pinned_total() - before)
+    return host
+
+
+def _pinned_total() -> int:
+    """The bytes the caching host allocator has pinned since the process
+    started (``torch.cuda.host_memory_stats()["allocated_bytes.allocated"]``,
+    read from its nested form without the flattening); 0 before CUDA is
+    initialised, when the stats are empty."""
+    return torch.cuda.host_memory_stats_as_nested_dict().get("allocated_bytes", {}).get("allocated", 0)
 
 
 def counters() -> dict[str, int]:

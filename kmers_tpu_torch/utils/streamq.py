@@ -15,7 +15,7 @@ from collections import deque
 
 import torch
 
-from .profiling import annotate
+from .profiling import annotate, pinned_empty_like
 
 __all__ = ["DrainQueue", "DEPTH"]
 
@@ -25,9 +25,10 @@ DEPTH = 8
 
 class DrainQueue:
     """``push(out, scalars)`` enqueues one chunk's output and prefetches its
-    1-D int64 ``scalars``; when more than :data:`DEPTH` outputs are in flight
-    the oldest is passed to ``drain_fn(out, values)`` with ``values`` the
-    scalars as a list of Python ints (span ``kmers.wait`` the read).
+    1-D int64 ``scalars`` (span ``kmers.prefetch``: the pinned allocation,
+    the copy and its event); when more than :data:`DEPTH` outputs are in
+    flight the oldest is passed to ``drain_fn(out, values)`` with ``values``
+    the scalars as a list of Python ints (span ``kmers.wait`` the read).
     ``flush()`` drains the rest in order."""
 
     def __init__(self, drain_fn):
@@ -37,10 +38,11 @@ class DrainQueue:
     def push(self, out, scalars: torch.Tensor) -> None:
         ready = None
         if scalars.is_cuda:
-            host = torch.empty(scalars.shape, dtype=scalars.dtype, pin_memory=True)
-            host.copy_(scalars, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+            with annotate("kmers.prefetch"):
+                host = pinned_empty_like(scalars)
+                host.copy_(scalars, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
             scalars = host
         self._pending.append((out, scalars, ready))
         if len(self._pending) > DEPTH:

@@ -3,6 +3,7 @@ card.  Every test carries the ``cuda`` marker and skips without a CUDA
 device; run them on a GPU host with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import collections
+import contextlib
 import ctypes
 import functools
 import sys
@@ -57,6 +58,7 @@ from kmers_tpu_torch.ops.kernels.window_kernel import (
 from kmers_tpu_torch.genetic_codes import ncbi_trans_table
 from kmers_tpu_torch.pipelines import extract as tex
 from kmers_tpu_torch.pipelines import minhash as tmh
+from kmers_tpu_torch.pipelines._input import download
 from kmers_tpu_torch.pipelines.canonical_count import (
     CountConfig,
     canonical_count_bytes,
@@ -530,9 +532,76 @@ def test_minimizer_kernel_matches_cpu_and_the_reference(cuda, monkeypatch, chunk
     got, launches, totals = _minimizers_on_cuda(monkeypatch, seq, K, W, skip)
     assert launches == (n_chunks, 0, n_chunks)
     assert totals["minimizer_kernel_windows"] == totals["minimizer_windows"] == n_win
-    assert totals["minimum_rows"] == totals["minimizers_selected"] == got[1].size > 0
+    assert totals["minimum_rows"] == got[1].size > 0
     want = tex.minimizer_select(seq, K=K, W=W, canonical=True, skip_ambiguous=skip, device="cpu")
     _same_rows(got, want, ref.minimizers(seq, K, W))
+
+
+def _pinned_download(monkeypatch, nbytes):
+    """``download`` of an int64 card tensor of ``nbytes`` bytes with the
+    counters on, as in :func:`_minimizers_on_cuda`: the array and the
+    counters."""
+    t = torch.arange(nbytes // 8, dtype=torch.int64, device="cuda")
+    reset_counters()
+    with monkeypatch.context() as m:
+        m.setattr(profiling, "_profiler_enabled", lambda: True)
+        arr = download(t)
+    return arr, counters()
+
+
+def test_each_chunk_prefetches_its_scalars_into_pinned_memory(cuda, monkeypatch):
+    """The drain queue's copy of each chunk's scalars (span
+    ``kmers.prefetch``) holds its pinned allocation (``kmers.pin``); the
+    result, under 1 MiB, comes back pageable."""
+    entered = []
+
+    @contextlib.contextmanager
+    def record(name):
+        entered.append(name)
+        yield
+        entered.append("/" + name)
+
+    data = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(3).integers(0, 4, 2500)]
+    reset_counters()
+    with monkeypatch.context() as m:
+        m.setattr(profiling, "_profiler_enabled", lambda: True)
+        m.setattr(profiling, "record_function", record)
+        got = canonical_count_bytes(data, CountConfig(K=15, chunk_size=1000), device="cuda")
+    totals = counters()
+    want = canonical_count_bytes(data, CountConfig(K=15, chunk_size=1000), device="cpu")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    at = [i for i, name in enumerate(entered) if name == "kmers.prefetch"]
+    assert len(at) == 3 and all(entered[i : i + 4] == ["kmers.prefetch", "kmers.pin", "/kmers.pin", "/kmers.prefetch"]
+                                for i in at)
+    # three int64 scalars a chunk: distinct, invalid and ambiguous counts
+    assert totals["pinned_bytes"] == 3 * 3 * 8 and "download_pinned_bytes" not in totals
+
+
+def test_a_pinned_download_counts_the_bytes_it_asked_for(cuda, monkeypatch):
+    arr, totals = _pinned_download(monkeypatch, 3 << 20)
+    assert torch.from_numpy(arr).is_pinned()
+    assert totals["pinned_bytes"] == totals["download_pinned_bytes"] == 3 << 20
+    # a cached block serves it (0), or a new one rounded to a power of two
+    assert totals["pinned_new_bytes"] in (0, 4 << 20)
+
+
+def test_a_freed_pinned_block_serves_the_next_download_of_its_size(cuda, monkeypatch):
+    # sizes of a bucket (128 MiB) no other download of these tests uses
+    nbytes = (1 << 26) + 8
+    first, _ = _pinned_download(monkeypatch, nbytes)
+    del first
+    second, totals = _pinned_download(monkeypatch, nbytes)
+    assert torch.from_numpy(second).is_pinned()
+    assert totals["pinned_bytes"] == nbytes and totals["pinned_new_bytes"] == 0
+
+
+def test_a_held_pinned_block_makes_the_next_download_pin_anew(cuda, monkeypatch):
+    # the 256-MiB bucket: the cache holds no free block of it
+    nbytes = (1 << 27) + 8
+    first, _ = _pinned_download(monkeypatch, nbytes)
+    second, totals = _pinned_download(monkeypatch, nbytes)
+    assert first.ctypes.data != second.ctypes.data
+    assert totals["pinned_bytes"] == nbytes and totals["pinned_new_bytes"] == 1 << 28
 
 
 @pytest.mark.parametrize("chunk", [1, 7, 2_047, 2_048, 2_049])

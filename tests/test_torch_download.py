@@ -210,7 +210,9 @@ def test_large_result_is_pinned_and_bit_exact(cuda, case):
     arr, totals = _counted(lambda: download(t))
     _same_array(arr, t.cpu().numpy())
     assert _pinned(arr)
-    assert totals == {"download_bytes": t.nbytes, "download_pinned_bytes": t.nbytes}
+    # the pinned allocation counts its bytes; whether it pinned anew depends on the cache
+    assert totals.pop("pinned_new_bytes") >= 0
+    assert totals == {"download_bytes": t.nbytes, "download_pinned_bytes": t.nbytes, "pinned_bytes": t.nbytes}
     assert _pinned(arr.view(np.uint64)) and np.array_equal(arr.view(np.uint64), t.cpu().numpy().view(np.uint64))
 
 

@@ -178,7 +178,7 @@ def test_the_plain_route_on_k12s_grid(monkeypatch, K, W, skip):
     assert ChunkMinimizers.launches == launches
     assert totals["minimizer_kernel_windows"] == 0
     assert totals["minimizer_windows"] == seq.size - K - W + 2
-    assert totals["minimizers_selected"] == got[1].size > 0
+    assert got[1].size > 0 and "minimizers_selected" not in totals
     _same(got, ref.minimizers(seq, K, W))
     _same(got, jex.minimizer_select(seq, K, W, True, skip_ambiguous=skip))
 

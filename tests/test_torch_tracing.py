@@ -4,6 +4,7 @@ records its ``kmers.*`` spans, nested under the call's root span, while a
 torch profiler records; its counters count the bytes and rows moved; and
 with no profiler running neither a span nor a counter is touched."""
 
+import collections
 import math
 import sys
 from pathlib import Path
@@ -87,7 +88,9 @@ def test_count_bytes_records_its_layers_under_one_root(merged):
     assert [n for n, p, _, _ in spans if p is None] == ["kmers.count_bytes"]
     kids = _children(spans, "kmers.count_bytes")
     assert kids.count("kmers.upload") == 1 and kids.count("kmers.chunk") == 3
-    assert kids.count("kmers.fold") == 2 and kids.count("kmers.download") == 2
+    # three chunk tables drained; the second push merges, the final fold merges once more
+    assert kids.count("kmers.drain") == 3 and _children(spans, "kmers.drain") == ["kmers.fold"]
+    assert kids.count("kmers.fold") == 1 and kids.count("kmers.download") == 2
     # each fold holds its distinct count's read; the drain queue reads once a chunk
     assert _children(spans, "kmers.fold") == ["kmers.wait", "kmers.wait"]
     assert kids.count("kmers.wait") == 3
@@ -121,8 +124,9 @@ def test_sixframe_records_its_layers_under_one_root(merged, K):
     kids = _children(spans, "kmers.sixframe")
     n_chunks = len(range(0, DATA_AA.size - 3 * K + 1, 1000 - (3 * K - 1)))
     assert n_chunks >= 5 and kids.count("kmers.chunk") == n_chunks
-    assert kids.count("kmers.upload") == 1 and kids.count("kmers.fold") == n_chunks - 1
-    assert kids.count("kmers.download") == 2
+    folds = kids.count("kmers.fold") + _children(spans, "kmers.drain").count("kmers.fold")
+    assert kids.count("kmers.upload") == 1 and folds == n_chunks - 1
+    assert kids.count("kmers.drain") == n_chunks and kids.count("kmers.download") == 2
     # the windows counted are the reference's, and the fold's rows are the merges'
     assert totals["aa_windows"] == int(sixframe_aa.count_table(DATA_AA, K)[1].sum()) == counts.sum()
     rows = "merge_rows" if K <= 7 else "mw_merge_rows"
@@ -133,11 +137,12 @@ def test_sixframe_records_its_layers_under_one_root(merged, K):
 def test_count_bytes_one_chunk_and_multiword_routes():
     (_, _), spans, _ = _traced(lambda: canonical_count_bytes(DATA[:900], CC, device="cpu"))
     assert _children(spans, "kmers.count_bytes") == [
-        "kmers.upload", "kmers.chunk", "kmers.wait", "kmers.download", "kmers.download"]
+        "kmers.upload", "kmers.chunk", "kmers.wait", "kmers.rows", "kmers.download", "kmers.download"]
     (kmers, _), spans, totals = _traced(
         lambda: canonical_count_bytes(DATA, CountConfig(K=40, chunk_size=1000), device="cpu"))
     kids = _children(spans, "kmers.count_bytes")
-    assert kids.count("kmers.chunk") == 3 and kids.count("kmers.fold") == 2
+    assert kids.count("kmers.chunk") == 3 and kids.count("kmers.drain") == 3
+    assert kids.count("kmers.fold") + _children(spans, "kmers.drain").count("kmers.fold") == 2
     # the packed words are boxed into Python ints last
     assert kids[-1] == "kmers.words"
     # every column of the chunks of 1000, 1000 and 578 bytes is sorted once;
@@ -193,7 +198,7 @@ def test_sketch_records_select_and_its_waits():
     sketch, spans, totals = _traced(lambda: minhash_sketch(data, K=21, s=100, device="cpu"))
     assert [n for n, p, _, _ in spans if p is None] == ["kmers.sketch"]
     assert _children(spans, "kmers.sketch") == [
-        "kmers.upload", "kmers.wait", "kmers.select", "kmers.download", "kmers.wait"]
+        "kmers.upload", "kmers.hash", "kmers.wait", "kmers.select", "kmers.download", "kmers.wait"]
     assert totals == {"upload_bytes": data.size, "download_bytes": sketch.size * 8}
 
 
@@ -235,7 +240,9 @@ def test_minimizers_record_their_chunks_under_one_root(monkeypatch):
     assert _children(spans, "kmers.chunk") == ["kmers.minimum", "kmers.wait"] * n_chunks
     assert totals["minimizer_windows"] == n_win
     assert totals["minimum_rows"] == _minimum_rows(n_win, 10, MM_CHUNK) == 4 * n_win + 16 * n_chunks
-    assert totals["minimizers_selected"] == positions.size
+    # the rows returned are the arrays' length: no counter repeats them
+    assert set(totals) == {"upload_bytes", "download_bytes", "minimizer_windows", "minimizer_kernel_windows",
+                           "minimum_rows"}
     assert totals["download_bytes"] == values.nbytes + positions.nbytes
 
 
@@ -265,7 +272,8 @@ def test_sharded_count_records_the_exchange_and_its_rows(chunk_size):
     assert [n for n, p, _, _ in spans if p is None] == ["kmers.sharded_count"]
     kids = _children(spans, "kmers.sharded_count")
     assert kids.count("kmers.exchange") == 1 and kids.count("kmers.gather") == 1
-    assert kids[0] == "kmers.upload" and kids[-2:] == ["kmers.download", "kmers.download"]
+    assert kids[:2] == ["kmers.slabs", "kmers.upload"]
+    assert kids[-3:] == ["kmers.rows", "kmers.download", "kmers.download"]
     # the mesh's overflow reduction is a blocking read inside the exchange
     assert _children(spans, "kmers.exchange") == ["kmers.wait"]
     # the real rows routed: every rank's local table, slab and halo
@@ -283,9 +291,139 @@ def _no_record_function(name):
     raise AssertionError(f"record_function({name!r}) entered with no profiler running")
 
 
+def _no_host_stats():
+    raise AssertionError("the pinned allocator's stats read with no profiler running")
+
+
+#: the spans that name host work inside the roots: the drain of a chunk
+#: table, the cut of a table to its real rows, the host slabs, the sketch's
+#: hash dispatch, the file read and the scan, the stream's conservation
+#: check, and on the card alone a pinned allocation and the drain queue's
+#: prefetch
+HOST_SPANS = ("kmers.drain", "kmers.rows", "kmers.slabs", "kmers.hash", "kmers.read", "kmers.scan", "kmers.check",
+              "kmers.pin", "kmers.prefetch")
+
+
+def _stream_call(tmp_path):
+    path = _fastq(tmp_path / "reads.fq")
+    return lambda: count_fastx_stream(path, CountConfig(K=K, chunk_size=2048), batch_bytes=4096, device="cpu")
+
+
+#: each call, its root, and the host spans it holds other than the drains:
+#: ``{(span, parent): count}``, or a function of the call's ``{(span,
+#: parent): count}``: every parse reads, and every one but the last, which
+#: reads the end of the file, scans
+ROOT_CASES = {
+    "count_k15": (lambda _: lambda: canonical_count_bytes(DATA, CC, device="cpu"), "kmers.count_bytes",
+                  {("kmers.rows", "kmers.count_bytes"): 1}),
+    "count_k40": (lambda _: lambda: canonical_count_bytes(DATA, CountConfig(K=40, chunk_size=1000), device="cpu"),
+                  "kmers.count_bytes", {("kmers.rows", "kmers.count_bytes"): 1}),
+    "sixframe": (lambda _: lambda: sixframe_aa_count(DATA_AA, SixFrameCountConfig(K=7, chunk_size=1000), device="cpu"),
+                 "kmers.sixframe", {("kmers.rows", "kmers.sixframe"): 1}),
+    "sharded": (lambda _: lambda: par.sharded_canonical_count(
+        DATA, par.ShardedCountConfig(K=K, chunk_size=1000), par.data_mesh(2, device="cpu")),
+        "kmers.sharded_count", {("kmers.slabs", "kmers.sharded_count"): 1, ("kmers.rows", "kmers.sharded_count"): 1}),
+    "sketch": (lambda _: lambda: minhash_sketch(DATA, K=21, s=100, device="cpu"), "kmers.sketch",
+               {("kmers.hash", "kmers.sketch"): 1}),
+    "stream": (_stream_call, "kmers.count_fastx", {
+        ("kmers.rows", "kmers.finalize"): 1, ("kmers.check", "kmers.finalize"): 1,
+        ("kmers.read", "kmers.parse"): lambda where: where[("kmers.parse", "kmers.count_fastx")],
+        ("kmers.scan", "kmers.parse"): lambda where: where[("kmers.parse", "kmers.count_fastx")] - 1}),
+}
+
+
+@pytest.mark.parametrize("case", ROOT_CASES)
+def test_host_spans_nest_under_the_calls_root(case, tmp_path):
+    """Each call's host work outside its kernels' spans: one drain a chunk
+    table beside its chunk, holding the merges its push sets off; the cut
+    to real rows before the download; the sharded slabs; the sketch's
+    hash; each batch's file read and scan inside its parse; the stream's
+    check."""
+    make, root, want = ROOT_CASES[case]
+    _, spans, _ = _traced(make(tmp_path))
+    assert [n for n, p, _, _ in spans if p is None] == [root]
+    where = collections.Counter((n, p) for n, p, _, _ in spans)
+    drains = {(n, p): c for (n, p), c in where.items() if n == "kmers.drain"}
+    assert drains == {("kmers.drain", p): c for (n, p), c in where.items() if n == "kmers.chunk"}
+    want = {key: c(where) if callable(c) else c for key, c in want.items()}
+    assert {key: c for key, c in where.items() if key[0] in HOST_SPANS and key[0] != "kmers.drain"} == want
+    if case != "sketch":
+        # a merge runs inside the drain whose push set it off, or in the final fold
+        fold_parents = {p for (n, p) in where if n == "kmers.fold"}
+        assert "kmers.drain" in fold_parents and fold_parents <= {"kmers.drain", root, "kmers.finalize"}
+    if case == "stream":
+        # the read of each batch lies inside its parse, the scan after it
+        parses = [(s, e) for n, _, s, e in spans if n == "kmers.parse"]
+        reads = [(s, e) for n, _, s, e in spans if n == "kmers.read"]
+        scans = [(s, e) for n, _, s, e in spans if n == "kmers.scan"]
+        assert len(reads) == len(parses) and all(ps <= rs and re_ <= pe for (ps, pe), (rs, re_) in zip(parses, reads))
+        assert all(re_ <= ss and se <= pe for (_, pe), (_, re_), (ss, se) in zip(parses, reads, scans))
+
+
+def test_a_drain_holds_every_merge_its_pushes_set_off():
+    """Four chunk tables: the second push merges once and the fourth
+    twice (the level stack's carries), all inside their drains, and the
+    final fold has nothing left to merge."""
+    data = DATA[np.random.default_rng(6).integers(0, DATA.size, 3_900)]
+    (_, counts), spans, _ = _traced(lambda: canonical_count_bytes(data, CC, device="cpu"))
+    kids = _children(spans, "kmers.count_bytes")
+    assert kids.count("kmers.chunk") == kids.count("kmers.drain") == 4
+    assert "kmers.fold" not in kids and _children(spans, "kmers.drain") == ["kmers.fold"] * 3
+    assert counts.sum() == data.size - K + 1
+
+
+def _cpu_pinned(monkeypatch):
+    """``torch.empty_like`` without the pinning (no card here), counting its
+    pinned requests."""
+    real, asked = torch.empty_like, []
+
+    def empty_like(t, *args, pin_memory=False, **kwargs):
+        if pin_memory:
+            asked.append(t.nbytes)
+        return real(t, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    return asked
+
+
+@pytest.mark.parametrize("growth", [0, 4096], ids=["cached", "pinned anew"])
+def test_pinned_new_bytes_is_the_growth_of_the_allocators_stats(monkeypatch, growth):
+    asked = _cpu_pinned(monkeypatch)
+    totals = iter([1 << 20, (1 << 20) + growth])
+    reads = []
+
+    def stats():
+        reads.append(1)
+        return {"allocated_bytes": {"allocated": next(totals)}}
+
+    monkeypatch.setattr(torch.cuda, "host_memory_stats_as_nested_dict", stats)
+    t = torch.zeros(3, 5, dtype=torch.int64)
+    host, spans, got = _traced(lambda: profiling.pinned_empty_like(t))
+    assert host.shape == t.shape and host.dtype == t.dtype and asked == [t.nbytes]
+    assert [(n, p) for n, p, _, _ in spans] == [("kmers.pin", None)] and len(reads) == 2
+    assert got == {"pinned_bytes": t.nbytes, "pinned_new_bytes": growth}
+
+
+def test_an_unprofiled_pinned_allocation_reads_no_stats(monkeypatch):
+    reset_counters()
+    asked = _cpu_pinned(monkeypatch)
+    monkeypatch.setattr(profiling, "record_function", _no_record_function)
+    monkeypatch.setattr(torch.cuda, "host_memory_stats_as_nested_dict", _no_host_stats)
+    monkeypatch.setattr(torch.cuda, "host_memory_stats", _no_host_stats)
+    profiling.pinned_empty_like(torch.zeros(7))
+    assert asked == [28] and counters() == {}
+
+
+def test_every_pinned_allocation_of_the_port_passes_one_helper():
+    package = ROOT / "kmers_tpu_torch"
+    users = sorted(str(p.relative_to(package)) for p in package.rglob("*.py") if "pin_memory" in p.read_text())
+    assert users == ["utils/profiling.py"]
+
+
 def test_nothing_is_recorded_without_a_profiler(monkeypatch, tmp_path):
     reset_counters()
     monkeypatch.setattr(profiling, "record_function", _no_record_function)
+    monkeypatch.setattr(torch.cuda, "host_memory_stats_as_nested_dict", _no_host_stats)
     canonical_count_bytes(DATA, CC, device="cpu")
     count_fastx_stream(_fastq(tmp_path / "reads.fq"), CC, batch_bytes=4096, device="cpu")
     minhash_sketch(DATA, K=K, s=20, device="cpu")
